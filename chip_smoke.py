@@ -10,18 +10,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
            the ptxas register report.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the serving path gives it (f32 max abs error <= 1e-5,
-           bf16 <= 2e-2), plus a sequence whose keys are all masked; the
-           kernel's device time (CUDA-graph replay) and eager per-call
-           time, the same for the plain version and for one library call
+           bf16 <= 2e-2), plus a sequence whose keys are all masked, a long
+           key axis (Lq=Lk=300), the widest head the kernel takes (dh=128,
+           with a key-padding, a full and a cache mask) and a row on each
+           side of the threshold between the kernel's decode and tile
+           paths; the path each row took, the kernel's device time
+           (CUDA-graph replay) and eager per-call time, the same for the
+           plain version and for one library call
            (scaled_dot_product_attention, a yardstick the port never
            calls), and the bound: the larger of bytes / 3.35 TB/s and
-           operations / the peak rate of their type.
+           operations / the fastest rate of their type that keeps the
+           type's accuracy.
   serve    a full-width vivt model (random weights from --seed) saved as a
            reference .chkpt, served by svpc_torch.cli.serve with
            batch_videos=8, max_clips=12; ~12 concurrent POST /v1/captions,
            then GET /v1/stats.  Every request must get one sentence per
            clip, some batch must hold several videos, and the attention
-           kernel must launch >= 88 times per decoded batch.
+           kernel must launch >= 88 times per decoded batch, through both
+           of its paths.
   parity   one served batch decoded again on the CPU (the plain path):
            first-position probabilities within 1e-4, token agreement.
 
@@ -37,6 +43,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,18 +54,34 @@ import urllib.request
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-PEAK_OPS_PER_S = {torch.float32: 67e12,      # f32 outside the tensor cores
-                  torch.bfloat16: 989e12}    # bf16 tensor cores, dense
+# the fastest rate at which the card keeps each type's accuracy, so that
+# no implementation can beat the bound: f32 as 3xTF32 on the tensor cores
+# (three TF32 products a product, 495 / 3 TFLOP/s), above the 67 TFLOP/s
+# of the f32 CUDA cores; bf16 on the tensor cores, dense
+ACCURATE_PEAK_OPS_PER_S = {torch.float32: 495e12 / 3,
+                           torch.bfloat16: 989e12}
 NUM_HEADS, HIDDEN = 12, 768                  # vivt (ModelConfig defaults)
 
 # the serving path's attention calls at batch_videos=8, max_clips=12:
-# (name, N, Lq, Lk, mask form, launches per decoded batch)
+# (name, N, Lq, Lk, mask form, heads, launches per decoded batch)
 SERVING_SHAPES = [
-    ("clip_encoder", 96, 100, 100, "padding", 2),
-    ("step_encoder", 8, 12, 12, "padding", 2),
-    ("decoder_self_cached", 96, 1, 22, "cache", 42),
-    ("decoder_cross_cached", 96, 1, 3, "ones", 42),
-    ("decoder_full_causal", 96, 22, 22, "causal", 0),   # use_cache=False
+    ("clip_encoder", 96, 100, 100, "padding", NUM_HEADS, 2),
+    ("step_encoder", 8, 12, 12, "padding", NUM_HEADS, 2),
+    ("decoder_self_cached", 96, 1, 22, "cache", NUM_HEADS, 42),
+    ("decoder_cross_cached", 96, 1, 3, "ones", NUM_HEADS, 42),
+    ("decoder_full_causal", 96, 22, 22, "causal", NUM_HEADS, 0),  # no cache
+]
+# off the serving path: several ring stages of keys, a sequence that sees
+# no key, and the widest head the kernel takes (dh=128: its f32 tile
+# blocks hold 64 query rows, its bf16 decode step spans two chunks of
+# keys) with each mask form (phase_kernels adds a row on each side of the
+# threshold between the kernel's decode and tile paths)
+EXTRA_SHAPES = [
+    ("long_keys", 8, 300, 300, "padding", NUM_HEADS, 0),
+    ("zero_visible_keys", 96, 100, 100, "none_visible", NUM_HEADS, 0),
+    ("wide_heads", 96, 100, 100, "padding", HIDDEN // 128, 0),
+    ("wide_heads_causal", 96, 100, 100, "causal", HIDDEN // 128, 0),
+    ("wide_heads_cached", 96, 1, 22, "cache", HIDDEN // 128, 0),
 ]
 
 
@@ -123,12 +146,29 @@ def device_ms(fn, reps: int = 20, iters: int = 10) -> float:
 # build
 # ---------------------------------------------------------------------- #
 
+def ptxas_report(log: str) -> dict:
+    """{"tile_kernel<float,64>": "96 registers, 0 bytes spill stores, ...",
+    ...} from nvcc's -Xptxas -v output."""
+    report, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"((?:tile|decode)_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                      ln)
+        if "Compiling entry function" in ln and m:
+            dtype = "float" if m.group(2) == "f" else "bf16"
+            name = f"{m.group(1)}<{dtype},{m.group(3)}>"
+            report[name] = ""
+        elif name and ("spill" in ln or "registers" in ln):
+            part = ln.split(":", 1)[-1].strip() if "registers" in ln \
+                else ln.strip()
+            report[name] = (report[name] + ", " + part).strip(", ")
+    return report
+
+
 def phase_build():
     from svpc_torch.ops import _build
     t0 = time.perf_counter()
     _build.build_all()
-    report = {name: [ln.strip() for ln in log.splitlines()
-                     if "registers" in ln or "spill" in ln]
+    report = {name: ptxas_report(log)
               for name, log in _build.build_log.items()}
     emit({"phase": "build", "ok": True,
           "wall_s": time.perf_counter() - t0,
@@ -164,28 +204,35 @@ def _attention_inputs(n, lq, lk, form, dtype, gen):
 
 
 def _bound_ms(q, k, v, mask, n, lq, lk):
-    dh = HIDDEN // NUM_HEADS
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, mask, q))
-    ops = 4 * n * NUM_HEADS * lq * lk * dh  # two products, 2 ops a MAC
+    ops = 4 * n * lq * lk * HIDDEN  # two products a head, 2 ops a MAC
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    t_ops = ops / ACCURATE_PEAK_OPS_PER_S[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), t_bytes
 
 
 def phase_kernels(seed: int):
     import torch.nn.functional as F
-    from svpc_torch.ops.attention import attention_plain, fused_attention
+    from svpc_torch.ops.attention import DECODE_MAX_LQ, LAUNCHES, _plan, \
+        attention_plain, fused_attention
 
+    cases = SERVING_SHAPES + EXTRA_SHAPES + [
+        ("threshold_decode", 96, DECODE_MAX_LQ, 22, "causal", NUM_HEADS, 0),
+        ("threshold_tile", 96, DECODE_MAX_LQ + 1, 22, "causal", NUM_HEADS,
+         0)]
     gen = torch.Generator().manual_seed(seed)
     rows = []
-    cases = SERVING_SHAPES + [("zero_visible_keys", 96, 100, 100,
-                               "none_visible", 0)]
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for name, n, lq, lk, form, per_batch in cases:
+        for name, n, lq, lk, form, nh, per_batch in cases:
             q, k, v, mask = _attention_inputs(n, lq, lk, form, dtype, gen)
-            got = fused_attention(q, k, v, mask, NUM_HEADS)
-            want = attention_plain(q, k, v, mask, NUM_HEADS)
+            dh = HIDDEN // nh
+            path = _plan(n, lq, nh, dh, dtype).path
+            before = LAUNCHES["fused_attention." + path]
+            got = fused_attention(q, k, v, mask, nh)
+            if LAUNCHES["fused_attention." + path] != before + 1:
+                fail("kernels", f"{name}: no launch on the {path} path")
+            want = attention_plain(q, k, v, mask, nh)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             # a sequence with every key masked puts all its scores at
@@ -196,21 +243,21 @@ def phase_kernels(seed: int):
             row_tol = (max(tol, 2e-3 * v.float().abs().max().item())
                        if form == "none_visible" else tol)
             row = {"shape": name, "dtype": str(dtype).split(".")[-1],
-                   "N": n, "Lq": lq, "Lk": lk, "mask": form,
+                   "N": n, "Lq": lq, "Lk": lk, "mask": form, "dh": dh,
+                   "path": path,
                    "launches_per_batch": per_batch, "max_abs_err": err,
                    "tol": row_tol}
             if not (math.isfinite(err) and err <= row_tol):
                 fail("kernels", f"fused_attention disagrees with "
                                 f"attention_plain: {row}")
             if dtype == torch.float32:
-                dh = HIDDEN // NUM_HEADS
-                qh, kh, vh = (t.view(n, -1, NUM_HEADS, dh).transpose(1, 2)
+                qh, kh, vh = (t.view(n, -1, nh, dh).transpose(1, 2)
                               for t in (q, k, v))
                 add = ((1.0 - mask) * -10000.0)[:, None]
                 bound, bound_by, bytes_ms = _bound_ms(q, k, v, mask, n, lq,
                                                       lk)
-                kern = lambda: fused_attention(q, k, v, mask, NUM_HEADS)
-                plain = lambda: attention_plain(q, k, v, mask, NUM_HEADS)
+                kern = lambda: fused_attention(q, k, v, mask, nh)
+                plain = lambda: attention_plain(q, k, v, mask, nh)
                 lib = lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=add)
                 row.update(ms=device_ms(kern), plain_ms=device_ms(plain),
@@ -226,10 +273,11 @@ def phase_kernels(seed: int):
     return rows
 
 
-def kernel_summary(rows, launches: int):
+def kernel_summary(rows, launches):
     """One entry per kernel: device times per decoded serving batch (each
     f32 serving shape weighted by its launches per batch), the worst f32
-    error over the serving shapes, and the main path's launch count."""
+    error over every row but the no-visible-key one, and the main path's
+    launch counts, in all and by the kernel's path."""
     f32 = [r for r in rows
            if r["dtype"] == "float32" and r["mask"] != "none_visible"]
     per_batch = lambda key: sum(r[key] * r["launches_per_batch"]
@@ -240,7 +288,9 @@ def kernel_summary(rows, launches: int):
         "name": "fused_attention", "route": "cuda",
         "source": "svpc_torch/csrc/fused_attention.cu",
         "replaces": "svpc_tpu/ops/pallas_attention.py:145",
-        "launches": launches,
+        "launches": launches["fused_attention"],
+        "launches_by_path": {p: launches["fused_attention." + p]
+                             for p in ("tile", "decode")},
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
         "bound_ms": bound,
@@ -329,6 +379,10 @@ def phase_serve(seed: int, workdir: str):
     if launches["fused_attention"] < 88 * batches:
         fail("serve", f"fused_attention launched {launches} times for "
                       f"{batches} batches (< 88 per batch)")
+    if not (launches["fused_attention.tile"]
+            and launches["fused_attention.decode"]):
+        fail("serve", f"a path of fused_attention never launched: "
+                      f"{launches}")
     emit({"phase": "serve", "ok": True, "setup_s": setup_s,
           "requests": len(results), "clips": n_clips, "wall_s": wall,
           "clips_per_s": n_clips / wall, "batches": batches,
@@ -336,7 +390,7 @@ def phase_serve(seed: int, workdir: str):
           "latency_ms": stats["latency_ms"], "batch_ms": stats["batch_ms"],
           "launches": launches,
           "launches_per_batch": launches["fused_attention"] / batches})
-    return service, fx, ckpt, launches["fused_attention"]
+    return service, fx, ckpt, launches
 
 
 # ---------------------------------------------------------------------- #

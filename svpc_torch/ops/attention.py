@@ -6,7 +6,9 @@ svpc_tpu/ops/pallas_attention.py::fused_attention (``_flash_kernel``, the
 repo's one ``pl.pallas_call``).  On a CUDA tensor it launches
 ``csrc/fused_attention.cu`` (built on first use by ops/_build.py) or
 raises; on a CPU tensor it runs ``attention_plain``.  There is no
-fallback from the card to the plain version.
+fallback from the card to the plain version.  ``_plan`` chooses the
+kernel's path and launch geometry: the tensor-core tile path for
+Lq > ``DECODE_MAX_LQ``, the register-only decode path otherwise.
 
 Layout, as in the JAX package: q (N, Lq, H), k/v (N, Lk, H), mask
 (N, 1, Lk) key-padding or (N, Lq, Lk) full, float 1/0.  Output
@@ -18,13 +20,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 # kernel launches since the last reset_launches(); each wrapper adds one
 # where it launches its kernel and nowhere else
-LAUNCHES = {"fused_attention": 0}
+# (the path counters split the first one by the path that ran)
+LAUNCHES = {"fused_attention": 0, "fused_attention.tile": 0,
+            "fused_attention.decode": 0}
 
 
 def reset_launches() -> None:
@@ -61,14 +65,55 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"tile": 0, "decode": 1}
+
+DECODE_MAX_LQ = 4     # Lq at or below this takes the decode path
+TILE_ROWS = 16        # query rows a consumer warp of the tile path owns
+TILE_MAX_WARPS = 8    # consumer warps a tile block: up to 128 query rows
+# f32 rows wider than 64: 128 rows with a full mask would take 270 KB of
+# shared memory, past the 227 KB a block may have on the H100; 64 take 201
+TILE_MAX_WARPS_F32_WIDE = 4
+# (sequence, head, query row) warps a decode block; the warps share
+# nothing, so small blocks spread a cached step's 1152 warps (N=96) evenly
+# over the 132 SMs
+DECODE_WARPS = 2
+
+
+class Plan(NamedTuple):
+    path: str                     # "tile" or "decode"
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+    warps: int                    # consumer warps (tile), warps (decode)
+
+
+def _plan(n: int, lq: int, num_heads: int, dh: int,
+          dtype: torch.dtype) -> Plan:
+    """The kernel's path and launch geometry for one call.
+
+    Tile: one block per (query block, head, sequence), the query blocks
+    as few as 128-row blocks (64-row in f32 with dh > 64) allow and
+    evenly filled, plus one producer warp.  A bf16 head row that is not
+    a whole number of 16-byte units cannot be bulk-copied, so it takes the
+    decode path at any Lq."""
+    if lq <= DECODE_MAX_LQ or (dtype == torch.bfloat16 and dh % 8):
+        blocks = -(-n * num_heads * lq // DECODE_WARPS)
+        return Plan("decode", (blocks, 1, 1), (DECODE_WARPS * 32, 1, 1),
+                    DECODE_WARPS)
+    groups = -(-lq // TILE_ROWS)
+    max_warps = (TILE_MAX_WARPS_F32_WIDE
+                 if dtype == torch.float32 and dh > 64 else TILE_MAX_WARPS)
+    blocks = -(-groups // max_warps)
+    warps = -(-groups // blocks)
+    return Plan("tile", (blocks, num_heads, n), ((warps + 1) * 32, 1, 1),
+                warps)
 
 
 def _bind(lib) -> None:
     fn = lib.svpc_fused_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_float,
-                                                ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _library():
@@ -113,13 +158,25 @@ def _check(q, k, v, mask, num_heads):
     return n, lq, lk, h, dh
 
 
+def _check_alignment(q, k, v) -> None:
+    """Bulk copies and vector loads need 16-byte aligned bases and row
+    strides (a stride of a length-1 dimension is never used)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        size = t.element_size()
+        if (t.data_ptr() % 16
+                or t.shape[0] > 1 and t.stride(0) * size % 16
+                or t.shape[1] > 1 and t.stride(1) * size % 16):
+            raise ValueError(f"fused_attention: {name} needs a 16-byte "
+                             "aligned base and row strides")
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Deterministic masked attention -> (N, Lq, H).
 
     CPU tensors: ``attention_plain``.  CUDA tensors: the hand-written
-    kernel, or an exception (wrong device, dtype, shape, layout, or a
-    refused launch)."""
+    kernel's tile or decode path (``_plan``), or an exception (wrong
+    device, dtype, shape, layout, alignment, or a refused launch)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, num_heads)
     if q.device.type != "cuda":
@@ -129,6 +186,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"fused_attention: {name} on {t.device}, "
                                f"q on {q.device}")
     n, lq, lk, h, dh = _check(q, k, v, mask, num_heads)
+    _check_alignment(q, k, v)
+    plan = _plan(n, lq, num_heads, dh, q.dtype)
     # a key-padding mask (N, 1, Lk) reads row 0 for every query
     m_sq = mask.stride(1) if mask.shape[1] == lq and lq > 1 else 0
     out = torch.empty((n, lq, h), dtype=q.dtype, device=q.device)
@@ -143,10 +202,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1),
             mask.stride(0), m_sq, mask.stride(2),
-            1.0 / math.sqrt(dh), stream)
+            1.0 / math.sqrt(dh), _PATHS[plan.path], plan.grid[0],
+            plan.warps, stream)
     if err != 0:
         raise RuntimeError(f"fused_attention kernel launch failed: CUDA "
                            f"error {err} (N={n} Lq={lq} Lk={lk} H={h} "
-                           f"heads={num_heads} {q.dtype})")
+                           f"heads={num_heads} {q.dtype} {plan})")
     LAUNCHES["fused_attention"] += 1
+    LAUNCHES["fused_attention." + plan.path] += 1
     return out

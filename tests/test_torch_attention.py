@@ -127,25 +127,109 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                torch.ones(2, 1, 7), 4)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, on the low 13 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the tile path forms it in f32: x = big + small, the two
+    cross terms and then big.big, each product exact, sums in f32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def test_kernel_arithmetic_and_plan():
+    """On the CPU: the tile path's 3xTF32 arithmetic holds 1e-5 against
+    float64 at the serving widths (dh=64; Lq=Lk=100 and Lq=1, Lk=22) and
+    a single TF32 product does not; ``_plan`` picks the path and geometry
+    the kernel is written for; misaligned tensors are refused."""
+    from svpc_torch.ops.attention import DECODE_MAX_LQ, Plan, \
+        _check_alignment, _plan
+
+    rng = np.random.RandomState(7)
+    for lq, lk in ((100, 100), (1, 22)):
+        q, k, v = (torch.from_numpy(rng.randn(4, length, 64)
+                                    .astype(np.float32))
+                   for length in (lq, lk, lk))
+        add = torch.from_numpy(
+            (rng.rand(4, 1, lk) > 0.3).astype(np.float32) - 1.0) * 1e4
+        want = torch.softmax(q.double() @ k.double().transpose(1, 2) / 8.0
+                             + add.double(), -1) @ v.double()
+        p3 = torch.softmax(_mm_3xtf32(q, k.transpose(1, 2)) * 0.125 + add,
+                           -1)
+        err3 = (_mm_3xtf32(p3, v).double() - want).abs().max().item()
+        p1 = torch.softmax(_tf32(q) @ _tf32(k).transpose(1, 2) * 0.125
+                           + add, -1)
+        err1 = (_tf32(p1) @ _tf32(v)).double().sub(want).abs().max().item()
+        assert err3 <= 1e-5, (lq, lk, err3)
+        assert err1 > 1e-5, (lq, lk, err1)  # why the split is needed
+
+    f32 = torch.float32
+    assert _plan(96, 100, 12, 64, f32) == Plan("tile", (1, 12, 96),
+                                               (256, 1, 1), 7)
+    assert _plan(8, 12, 12, 64, f32) == Plan("tile", (1, 12, 8),
+                                             (64, 1, 1), 1)
+    assert _plan(8, 300, 12, 64, f32) == Plan("tile", (3, 12, 8),
+                                              (256, 1, 1), 7)
+    assert _plan(96, 1, 12, 64, f32) == Plan("decode", (576, 1, 1),
+                                             (64, 1, 1), 2)
+    assert _plan(96, DECODE_MAX_LQ, 12, 64, f32).path == "decode"
+    assert _plan(96, DECODE_MAX_LQ + 1, 12, 64, f32).path == "tile"
+    # a bf16 row of 12 columns is no whole number of 16-byte units
+    assert _plan(2, 100, 4, 12, torch.bfloat16).path == "decode"
+    assert _plan(2, 100, 4, 16, torch.bfloat16).path == "tile"
+    # f32 rows wider than 64: 64-row blocks, so that a full mask's terms
+    # fit the shared memory of a block
+    assert _plan(96, 100, 6, 128, f32) == Plan("tile", (2, 6, 96),
+                                               (160, 1, 1), 4)
+    assert _plan(96, 100, 6, 128, torch.bfloat16) == Plan(
+        "tile", (1, 6, 96), (256, 1, 1), 7)
+
+    x = torch.zeros(2, 5, 36)
+    _check_alignment(x[..., :32], x[..., :32], x[..., :32])  # 144 B rows
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_alignment(x[..., 1:], x[..., :32], x[..., :32])
+    with pytest.raises(ValueError, match="16-byte"):
+        y = torch.zeros(2, 5, 34)[..., :32]
+        _check_alignment(x[..., :32], y, x[..., :32])
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """The hand-written kernel against attention_plain on the card, at the
-    serving path's forms, and on a sequence that sees no key at all.
+    serving path's forms, a long key axis, both sides of the path
+    threshold, the widest head (dh=128) on both paths, a bf16 head
+    of 12 columns at Lq=100 (the decode path), and on a sequence that sees
+    no key at all; both paths run.
 
     Run on the card with
     ``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``
     (the card's machine has no JAX, which tests/conftest.py imports)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check)")
-    from svpc_torch.ops.attention import LAUNCHES, attention_plain, \
-        fused_attention
+    from svpc_torch.ops.attention import DECODE_MAX_LQ, LAUNCHES, _plan, \
+        attention_plain, fused_attention, reset_launches
 
+    reset_launches()
     gen = torch.Generator().manual_seed(0)
-    for (dtype, tol), (n, lq, lk, full, none_visible) in itertools.product(
-            ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)),
-            ((96, 100, 100, False, False), (8, 12, 12, False, False),
-             (96, 1, 22, False, False), (96, 1, 3, False, False),
-             (96, 22, 22, True, False), (96, 100, 100, False, True))):
+    for (dtype, tol), (n, lq, lk, full, none_visible, nh) in \
+            itertools.product(
+                ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)),
+                ((96, 100, 100, False, False, 12),
+                 (8, 12, 12, False, False, 12),
+                 (96, 1, 22, False, False, 12), (96, 1, 3, False, False, 12),
+                 (96, 22, 22, True, False, 12),
+                 (96, 100, 100, False, True, 12),
+                 (8, 300, 300, False, False, 12),
+                 (96, DECODE_MAX_LQ, 22, True, False, 12),
+                 (96, DECODE_MAX_LQ + 1, 22, True, False, 12),
+                 (96, 100, 100, False, False, 6),
+                 (96, 100, 100, True, False, 6), (96, 1, 22, False, False, 6),
+                 (8, 100, 100, True, False, 64))):
         q, k, v = (torch.randn(n, l, 768, generator=gen).to("cuda", dtype)
                    for l in (lq, lk, lk))
         mask = (torch.rand(n, lq if full else 1, lk, generator=gen) > 0.3)
@@ -160,10 +244,14 @@ def test_cuda_kernel_matches_plain():
             mask[0] = 0.0
             row_tol = max(tol, 2e-3 * v.float().abs().max().item())
         mask = mask.cuda()
-        before = LAUNCHES["fused_attention"]
-        got = fused_attention(q, k, v, mask, 12)
+        path = "fused_attention." + _plan(n, lq, nh, 768 // nh, dtype).path
+        before, before_path = LAUNCHES["fused_attention"], LAUNCHES[path]
+        got = fused_attention(q, k, v, mask, nh)
         torch.cuda.synchronize()
         assert LAUNCHES["fused_attention"] == before + 1
-        want = attention_plain(q, k, v, mask, 12)
+        assert LAUNCHES[path] == before_path + 1
+        want = attention_plain(q, k, v, mask, nh)
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= row_tol, (n, lq, lk, dtype, err)
+        assert err <= row_tol, (n, lq, lk, nh, dtype, err)
+    assert LAUNCHES["fused_attention.tile"] > 0
+    assert LAUNCHES["fused_attention.decode"] > 0

@@ -16,7 +16,14 @@ one JSON line with:
   profile        torch.profiler over one decode: device-busy time (sum of
                  kernel times on the card), idle share of the wall time,
                  kernel launches, and the kernels that take the most
-                 device time (fused_attention among them).
+                 device time, and the attention kernel's launches and
+                 device time by path (tile, decode);
+  wrapper_call_us
+                 host time of one fused_attention call at the cached
+                 decode shapes: 5 rounds of 1000 calls each, queued with
+                 no synchronize between them (the card needs less time a
+                 call than the host, so the host clock reads the wrapper's
+                 own cost), in us a call; "min" is the least round.
 
 Run it from the repository root on a machine with the card.
 """
@@ -54,7 +61,8 @@ def main(argv=None) -> int:
     from svpc_torch.decode.greedy import greedy_decode
     from svpc_torch.model import SVPCModel
     from svpc_torch.model.svpc import to_tensors
-    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+    from svpc_torch.ops.attention import LAUNCHES, fused_attention, \
+        reset_launches
     from svpc_torch.serving import CaptionService
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -122,7 +130,29 @@ def main(argv=None) -> int:
         kernels = [e for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
         busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+        # the attention kernel's device time by path (csrc kernel names)
+        attn_ms = {path: sum(dev_us(e) for e in kernels
+                             if f"{path}_kernel<" in e.key) / 1e3
+                   for path in ("tile", "decode")}
         top = sorted(kernels, key=dev_us, reverse=True)[:12]
+
+        m = cfg.model
+        gen = torch.Generator().manual_seed(args.seed)
+        wrapper_us = {}
+        for name, lk in (("decoder_self_cached", m.max_t_len),
+                         ("decoder_cross_cached", 3)):
+            q, k, v = (torch.randn(96, length, m.hidden_size, generator=gen)
+                       .to(svc.device) for length in (1, lk, lk))
+            mask = torch.ones(96, 1, lk, device=svc.device)
+            rounds = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    fused_attention(q, k, v, mask, m.num_attention_heads)
+                rounds.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            wrapper_us[name] = {"min": min(rounds), "rounds": rounds}
         print(json.dumps({
             "card": torch.cuda.get_device_name(0),
             "geometry": {"batch_videos": 8, "max_clips": 12,
@@ -134,10 +164,13 @@ def main(argv=None) -> int:
                 "idle_share": (1.0 - busy_ms / wall_ms
                                if kernels else None),
                 "kernel_launches": sum(e.count for e in kernels),
-                "fused_attention_launches": LAUNCHES["fused_attention"],
+                # in all, and by the kernel's tile and decode paths
+                "fused_attention_launches": dict(LAUNCHES),
+                "fused_attention_device_ms": attn_ms,
                 "top_kernels": [{"name": e.key[:80], "count": e.count,
                                  "device_ms": dev_us(e) / 1e3}
                                 for e in top]},
+            "wrapper_call_us": wrapper_us,
         }), flush=True)
     return 0
 
