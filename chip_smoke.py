@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive svpc_torch's serving path on one NVIDIA card and check it.
+"""Drive svpc_torch's serving and training paths on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -30,6 +31,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
            of its paths.
   parity   one served batch decoded again on the CPU (the plain path):
            first-position probabilities within 1e-4, token agreement.
+  train    svpc_torch.train.loop.train on the card at full vivt width
+           (random init from --seed) on a training fixture (96 train, 16
+           val videos): batch 16, 2 epochs x 6 steps, checkpoint_every_steps
+           3.  Every step's loss must be finite; the attention kernel must
+           launch through both paths during validation (the teacher-forced
+           eval step and the greedy decode) and never inside a train step
+           (whose attention is the differentiable plain version), and must
+           refuse inputs that want a gradient.  A run killed 3 steps into
+           epoch 1 and resumed from its mid-epoch checkpoint must repeat the
+           uninterrupted run's last 3 losses within 1e-5 relative.  One
+           train step (dropout 0, the same Gumbel noise) on the card and on
+           the CPU from the same weights and batch: caption, entity and
+           action losses and the gradient norm within 1e-4 relative, the
+           re-simulation losses too unless a Gumbel argmax flipped (flips
+           are counted).  One validation batch as the trainer builds it,
+           on the EMA weights: the teacher-forced eval forward on the card
+           and on the CPU (losses within 1e-4 relative, probabilities within
+           1e-4), and every form of attention call that it and the greedy
+           decode make on the card recorded and held against
+           attention_plain on the recorded inputs (f32 1e-5), timed beside
+           plain, SDPA and the bound.  Prints ms per step split into
+           forward, backward and optimizer (CUDA events), the step without
+           the nonfinite guard's wait, clips/s, peak device memory, the
+           kernel's launches by path, a torch.profiler window of train
+           steps (device-busy time, idle share, top kernels), the parameter
+           count, and whether one step's gradients repeat bit for bit.
 
 The line before the last is {"kernels": [...]}, preceded by the card's
 name and power limit as nvidia-smi reports them; the last line is
@@ -40,6 +67,7 @@ and exits 2.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -273,11 +301,13 @@ def phase_kernels(seed: int):
     return rows
 
 
-def kernel_summary(rows, launches):
+def kernel_summary(rows, phase_launches):
     """One entry per kernel: device times per decoded serving batch (each
     f32 serving shape weighted by its launches per batch), the worst f32
-    error over every row but the no-visible-key one, and the main path's
-    launch counts, in all and by the kernel's path."""
+    error over every row but the no-visible-key one, and the main paths'
+    launch counts (serve + train), in all, by the kernel's path and by
+    phase."""
+    total = lambda key: sum(l[key] for l in phase_launches.values())
     f32 = [r for r in rows
            if r["dtype"] == "float32" and r["mask"] != "none_visible"]
     per_batch = lambda key: sum(r[key] * r["launches_per_batch"]
@@ -288,9 +318,11 @@ def kernel_summary(rows, launches):
         "name": "fused_attention", "route": "cuda",
         "source": "svpc_torch/csrc/fused_attention.cu",
         "replaces": "svpc_tpu/ops/pallas_attention.py:145",
-        "launches": launches["fused_attention"],
-        "launches_by_path": {p: launches["fused_attention." + p]
+        "launches": total("fused_attention"),
+        "launches_by_path": {p: total("fused_attention." + p)
                              for p in ("tile", "decode")},
+        "launches_by_phase": {ph: l["fused_attention"]
+                              for ph, l in phase_launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
         "bound_ms": bound,
@@ -440,6 +472,412 @@ def phase_parity(service, fx, ckpt):
     emit(dict(row, ok=True))
 
 
+# ---------------------------------------------------------------------- #
+# train
+# ---------------------------------------------------------------------- #
+
+class _Killed(Exception):
+    pass
+
+
+def _train_cfg(fx):
+    """vivt at its full width (ModelConfig defaults) on the fixture."""
+    from svpc_torch.config import Config
+
+    return Config().replace_data(**{k: fx[k] for k in (
+        "data_dir", "word2idx_path", "verb2idx_path", "duration_file",
+        "video_feature_dir")}).replace_train(
+        batch_size=16, val_batch_size=16, n_epoch=2,
+        checkpoint_every_steps=3)
+
+
+def _counted_train(loop, cfg, workdir, kill_after=None, resume_from=None):
+    """loop.train on the card; returns (result, kernel launches made inside
+    train steps).  ``kill_after`` raises _Killed at that train step."""
+    from svpc_torch.ops.attention import LAUNCHES
+
+    real, inside = loop.train_step, {"n": 0, "steps": 0}
+
+    def counted(*args, **kwargs):
+        if inside["steps"] == kill_after:
+            raise _Killed()
+        before = LAUNCHES["fused_attention"]
+        out = real(*args, **kwargs)
+        inside["n"] += LAUNCHES["fused_attention"] - before
+        inside["steps"] += 1
+        return out
+
+    loop.train_step = counted
+    try:
+        res = loop.train(cfg, workdir, resume_from=resume_from,
+                         device="cuda")
+    finally:
+        loop.train_step = real
+    return res, inside["n"]
+
+
+def _step_timing(state, batch, cfg, reps=5):
+    """ms of forward, backward and optimizer per train step (CUDA events
+    around each part; the first of ``reps`` steps is a warm-up), and the
+    same steps' whole time without the nonfinite guard, whose check waits
+    for the card (``step_ms_unguarded``), the two interleaved."""
+    from svpc_torch.train.step import apply_step, step_generator
+
+    cfgs = {True: cfg.replace_train(skip_nonfinite_updates=True),
+            False: cfg.replace_train(skip_nonfinite_updates=False)}
+    times = {True: [], False: []}
+    for i in range(2 * reps):
+        guard = i % 2 == 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        gen = step_generator("cuda", cfg.train.seed, 1000 + i)
+        ev[0].record()
+        out = state.model(batch, deterministic=False, generator=gen)
+        ev[1].record()
+        out.total_loss.backward()
+        ev[2].record()
+        apply_step(state, cfgs[guard], loss=out.total_loss)
+        ev[3].record()
+        torch.cuda.synchronize()
+        times[guard].append([ev[j].elapsed_time(ev[j + 1])
+                             for j in range(3)])
+    mean = lambda ts, j: sum(t[j] for t in ts[1:]) / (reps - 1)
+    out = dict(zip(("forward_ms", "backward_ms", "optimizer_ms"),
+                   (mean(times[True], j) for j in range(3))))
+    out["step_ms_unguarded"] = sum(mean(times[False], j) for j in range(3))
+    out["optimizer_ms_unguarded"] = mean(times[False], 2)
+    return out
+
+
+def _repeat_step_bitwise(state, batch, cfg) -> bool:
+    """The same step's gradients twice from one state: bitwise equal?"""
+    from svpc_torch.train.step import step_generator
+
+    grads = []
+    for _ in range(2):
+        state.model.zero_grad(set_to_none=True)
+        out = state.model(batch, deterministic=False,
+                          generator=step_generator("cuda", cfg.train.seed, 0))
+        out.total_loss.backward()
+        grads.append([p.grad.clone() for p in state.params.values()])
+    state.model.zero_grad(set_to_none=True)
+    return all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def _profile_steps(state, batch, cfg, steps=3):
+    """torch.profiler over ``steps`` train steps: device-busy ms a step,
+    the idle share of the wall time, and the kernels taking the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from svpc_torch.train.step import train_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "idle_share": 1.0 - busy_ms / wall_ms if kernels else None,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "device_ms_per_step": dev_us(e) / 1e3 / steps}
+                            for e in top]}
+
+
+class _SharedGumbel:
+    """Patches the re-simulator's sampler so that the card and the CPU add
+    the same Gumbel noise (drawn once on the CPU from ``seed``); ``argmax``
+    keeps each device's last sample, to count the flips between them."""
+
+    def __init__(self, seed: int):
+        self.seed, self.noise, self.argmax = seed, {}, {}
+
+    def __enter__(self):
+        import svpc_torch.model.svpc as svpc
+        from svpc_torch.ops.gumbel import gumbel_noise, straight_through
+
+        def shared(logits, tau, generator=None):
+            key = tuple(logits.shape)
+            if key not in self.noise:
+                self.noise[key] = gumbel_noise(
+                    logits.shape, torch.Generator().manual_seed(self.seed),
+                    "cpu")
+            y = straight_through(logits, self.noise[key].to(logits.device),
+                                 tau)
+            self.argmax[logits.device.type] = y.detach().argmax(-1).cpu()
+            return y
+
+        self.real, svpc.gumbel_softmax_st = svpc.gumbel_softmax_st, shared
+        return self
+
+    def __exit__(self, *exc):
+        import svpc_torch.model.svpc as svpc
+        svpc.gumbel_softmax_st = self.real
+
+    def flips(self) -> int:
+        return int((self.argmax["cuda"] != self.argmax["cpu"]).sum())
+
+
+def _rel(res):
+    return {k: abs(res["cuda"][k] - res["cpu"][k])
+            / max(abs(res["cpu"][k]), 1e-30) for k in res["cpu"]}
+
+
+def _parity_step(cfg, batch_np, seed):
+    """One train step from the same weights and batch on the card and on
+    the CPU (dropout 0, the same Gumbel noise): losses, gradient norm and
+    the re-simulator's Gumbel argmax flips."""
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.train.optim import make_optimizer
+    from svpc_torch.train.state import TrainState
+    from svpc_torch.train.step import apply_step
+
+    cfg = cfg.replace_model(hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0,
+                            reasoner_dropout_prob=0.0)
+    cpu_model = SVPCModel(cfg.model, torch.Generator().manual_seed(seed))
+    models = {"cuda": copy.deepcopy(cpu_model).to("cuda"), "cpu": cpu_model}
+    res = {}
+    with _SharedGumbel(seed) as gumbel:
+        for dev, model in models.items():
+            state = TrainState.create(
+                model, make_optimizer(cfg.train, 6,
+                                      dict(model.named_parameters())),
+                use_ema=True)
+            out = model(to_tensors(batch_np, torch.device(dev)),
+                        deterministic=False)
+            out.total_loss.backward()
+            m = apply_step(state, cfg, loss=out.total_loss)
+            res[dev] = {k: float(getattr(out, k).detach()) for k in (
+                "total_loss", "caption_loss", "entity_loss", "action_loss",
+                "re_entity_loss", "re_action_loss")}
+            res[dev]["grad_norm"] = float(m["grad_norm"])
+    return res, _rel(res), gumbel.flips()
+
+
+def _validation_check(state, cfg, seed):
+    """One validation batch as the trainer builds it (the packed budget of
+    the whole split, batch 16), on the EMA weights:
+
+    * the teacher-forced eval forward on the card and on the CPU (the same
+      Gumbel noise): caption, entity and action losses within 1e-4
+      relative, prediction probabilities within 1e-4, Gumbel flips counted;
+    * every attention call of that eval forward and of the greedy decode on
+      the card, recorded: each distinct form (sequences, query and key
+      lengths, mask) held against attention_plain on the recorded inputs
+      (f32 1e-5; a row that sees no key, an empty packed slot, 2e-3 *
+      max|v|), timed beside plain, SDPA and the bound, with its calls in
+      this batch."""
+    import torch.nn.functional as F
+    import svpc_torch.model.layers as layers
+    import svpc_torch.train.loop as loop
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.decode.greedy import greedy_decode
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.ops.attention import _plan, attention_plain, \
+        fused_attention
+    from svpc_torch.train.step import step_generator
+
+    val_ds = CaptionDataset(cfg, "val", lazy_features=True)
+    bs = min(cfg.train.val_batch_size, len(val_ds))
+    batch_np, _ = next(val_ds.batches(
+        bs, builder=loop.eval_packing_builder(cfg, val_ds, bs)))
+    weights = state.eval_params()
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = SVPCModel(cfg.model).to(dev).eval()
+        models[dev].load_state_dict({n: t.to(dev) for n, t in
+                                     weights.items()}, strict=True)
+
+    calls, stage = {}, {"name": None}
+
+    def recording(q, k, v, mask, nh):
+        if q.is_cuda:
+            key = (stage["name"], q.shape[0], q.shape[1], k.shape[1],
+                   tuple(mask.shape[1:]))
+            if key not in calls:
+                calls[key] = {"inputs": (q, k, v, mask, nh), "calls": 0}
+            calls[key]["calls"] += 1
+        return fused_attention(q, k, v, mask, nh)
+
+    res, probs = {}, {}
+    layers.fused_attention = recording
+    try:
+        with _SharedGumbel(seed) as gumbel, torch.no_grad():
+            for dev, model in models.items():
+                stage["name"] = "eval_step"
+                out = model(to_tensors(batch_np, torch.device(dev)),
+                            deterministic=True,
+                            generator=step_generator(dev, 0))
+                res[dev] = {k: float(getattr(out, k)) for k in (
+                    "total_loss", "caption_loss", "entity_loss",
+                    "action_loss", "re_entity_loss", "re_action_loss")}
+                probs[dev] = out.prediction_scores.float().cpu()
+            stage["name"] = "greedy"
+            greedy_decode(models["cuda"],
+                          to_tensors(batch_np, torch.device("cuda")))
+    finally:
+        layers.fused_attention = fused_attention
+    rel = _rel(res)
+    parity = {"losses": res, "rel": rel, "gumbel_flips": gumbel.flips(),
+              "max_abs_diff_probs": (probs["cuda"] - probs["cpu"])
+              .abs().max().item(), "tol": 1e-4}
+    bad = [k for k in ("caption_loss", "entity_loss", "action_loss")
+           if rel[k] > 1e-4]
+    if not parity["gumbel_flips"]:
+        bad += [k for k in ("re_entity_loss", "re_action_loss")
+                if rel[k] > 1e-4]
+    if parity["max_abs_diff_probs"] > 1e-4:
+        bad.append("prediction_scores")
+
+    rows = []
+    for (name, n, lq, lk, mshape), c in sorted(calls.items()):
+        q, k, v, mask, nh = c["inputs"]
+        dh = q.shape[-1] // nh
+        got = fused_attention(q, k, v, mask, nh)
+        want = attention_plain(q, k, v, mask, nh)
+        sees = mask.expand(n, lq, lk).amax(-1) > 0           # (N, Lq)
+        diff = (got.float() - want.float()).abs().amax(-1)
+        err = diff[sees].max().item() if sees.any() else 0.0
+        blind = diff[~sees].max().item() if (~sees).any() else 0.0
+        blind_tol = 2e-3 * v.float().abs().max().item()
+        qh, kh, vh = (t.reshape(n, -1, nh, dh).transpose(1, 2)
+                      for t in (q, k, v))
+        add = ((1.0 - mask) * -10000.0)[:, None]
+        bound, bound_by, _ = _bound_ms(q, k, v, mask, n, lq, lk)
+        row = {"stage": name, "N": n, "Lq": lq, "Lk": lk,
+               "mask": list(mshape), "dh": dh,
+               "path": _plan(n, lq, nh, dh, q.dtype).path,
+               "calls_in_batch": c["calls"], "max_abs_err": err, "tol": 1e-5,
+               "max_abs_err_no_key_rows": blind,
+               "no_key_rows": int((~sees).sum()),
+               "ms": device_ms(lambda: fused_attention(q, k, v, mask, nh)),
+               "plain_ms": device_ms(
+                   lambda: attention_plain(q, k, v, mask, nh)),
+               "library_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qh, kh, vh, attn_mask=add)),
+               "bound_ms": bound, "bound_by": bound_by}
+        rows.append(row)
+        if not (math.isfinite(err) and err <= 1e-5 and blind <= blind_tol):
+            bad.append(f"kernel at {row}")
+    return parity, rows, bad
+
+
+def phase_train(seed: int, workdir: str):
+    import svpc_torch.train.loop as loop
+    from svpc_torch.config import Config
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.data.synthetic import write_training_fixture
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.ops.attention import LAUNCHES, fused_attention, \
+        reset_launches
+
+    t_phase = t0 = time.perf_counter()
+    fx = write_training_fixture(os.path.join(workdir, "train_data"), Config(),
+                                n_train=96, n_val=16, seed=seed)
+    cfg = _train_cfg(fx)
+    fixture_s = time.perf_counter() - t0
+
+    # the main path: 2 epochs x 6 steps, launches counted from 0
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    res_a, in_steps = _counted_train(loop, cfg, os.path.join(workdir, "a"))
+    train_s = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    losses = [s["loss"] for s in res_a["steps"]]
+    if len(losses) != 12 or not all(math.isfinite(x) for x in losses):
+        fail("train", f"losses {losses}")
+    if in_steps:
+        fail("train", f"fused_attention launched {in_steps} times inside "
+                      "train steps")
+    if not (launches["fused_attention.tile"]
+            and launches["fused_attention.decode"]):
+        fail("train", f"a path of fused_attention did not launch during "
+                      f"validation: {launches}")
+
+    # killed 3 steps into epoch 1, resumed from the mid-epoch checkpoint
+    wd_b = os.path.join(workdir, "b")
+    try:
+        _counted_train(loop, cfg, wd_b, kill_after=9)
+        fail("train", "the kill did not happen")
+    except _Killed:
+        pass
+    res_b, _ = _counted_train(loop, cfg, wd_b, resume_from=os.path.join(
+        wd_b, "checkpoint_last"))
+    resumed = [s["loss"] for s in res_b["steps"]]
+    resume_rel = [abs(x - y) / abs(y) for x, y in zip(resumed, losses[9:])]
+    if [s["step"] for s in res_b["steps"]] != [9, 10, 11] or \
+            max(resume_rel) > 1e-5:
+        fail("train", f"resumed losses {resumed} != {losses[9:]}")
+
+    # the kernel refuses inputs that want a gradient
+    q = torch.randn(4, 8, HIDDEN, device="cuda", requires_grad=True)
+    try:
+        fused_attention(q, q.detach(), q.detach(),
+                        torch.ones(4, 1, 8, device="cuda"), NUM_HEADS)
+        fail("train", "fused_attention accepted a grad-requiring input")
+    except RuntimeError as e:
+        if "gradient" not in str(e):
+            raise
+
+    # step timing, memory and a profiler window on the trained state
+    state = res_a["state"]
+    batch_np, _ = next(CaptionDataset(cfg, "train", lazy_features=True)
+                       .batches(16, shuffle=True, seed=cfg.train.seed,
+                                builder=loop.packing_builder(cfg)))
+    batch = to_tensors(batch_np, torch.device("cuda"))
+    clips = int(batch_np["clip_mask"].sum())
+    torch.cuda.reset_peak_memory_stats()
+    timing = _step_timing(state, batch, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sum(timing[k] for k in ("forward_ms", "backward_ms",
+                                      "optimizer_ms"))
+    profile = _profile_steps(state, batch, cfg)
+    bitwise = _repeat_step_bitwise(state, batch, cfg)
+
+    parity, rel, flips = _parity_step(cfg, batch_np, seed)
+    bad = [k for k in ("caption_loss", "entity_loss", "action_loss",
+                       "grad_norm") if rel[k] > 1e-4]
+    if not flips:
+        bad += [k for k in ("re_entity_loss", "re_action_loss")
+                if rel[k] > 1e-4]
+    val_parity, val_rows, val_bad = _validation_check(state, cfg, seed)
+    bad += [f"validation: {b}" for b in val_bad]
+    row = {"phase": "train", "phase_s": time.perf_counter() - t_phase,
+           "fixture_s": fixture_s, "train_s": train_s,
+           "losses": losses, "resumed_losses": resumed,
+           "resume_max_rel": max(resume_rel),
+           "launches": launches, "launches_in_train_steps": in_steps,
+           "batch_clips": clips, "packed_clips": len(batch_np["clip_mask"]),
+           "v_len": int(batch_np["clip_input_ids"].shape[1]
+                        - cfg.model.max_t_len),
+           "step_ms": step_ms, **timing,
+           "clips_per_s": clips / step_ms * 1e3,
+           "max_memory_allocated": peak, "profile": profile,
+           "parameters": sum(p.numel() for p in state.params.values()),
+           "repeat_step_bitwise": bitwise,
+           "parity": parity, "parity_rel": rel, "gumbel_flips": flips,
+           "validation_parity": val_parity, "validation_kernel": val_rows,
+           "card": card_line()}
+    if bad:
+        fail("train", f"card and CPU disagree on {bad}: {json.dumps(row)}")
+    emit(dict(row, ok=True))
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -462,8 +900,10 @@ def main(argv=None) -> int:
             as workdir:
         service, fx, ckpt, launches = phase_serve(args.seed, workdir)
         phase_parity(service, fx, ckpt)
+        train_launches = phase_train(args.seed, workdir)
     print(card_line(), flush=True)
-    emit({"kernels": kernel_summary(rows, launches)})
+    emit({"kernels": kernel_summary(rows, {"serve": launches,
+                                           "train": train_launches})})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

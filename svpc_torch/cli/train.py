@@ -1,0 +1,50 @@
+"""Training CLI: the port of svpc_tpu/cli/train.py.
+
+    python -m svpc_torch.cli.train --model_type vivt \
+      --data_dir DIR --video_feature_dir DIR --duration_file CSV \
+      --word2idx_path JSON --verb2idx_path JSON --workdir results/run1
+
+Runs on the card unless ``--device cpu``.  Writes ``train.log.csv``,
+``valid.log.csv``, ``greedy_pred_val_epoch{e}.json``, ``checkpoint_last``
+(+ ``.progress.json``), ``checkpoint_best`` and ``history.json`` under
+``--workdir``; ``--resume_from <workdir>/checkpoint_last`` continues a run,
+inside its epoch when the checkpoint was taken mid-epoch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from svpc_torch.cli.common import (add_common_args, add_train_args,
+                                   train_config_from_args)
+from svpc_torch.train.loop import train
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)-10s: %(message)s")
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_common_args(p)
+    add_train_args(p)
+    p.add_argument("--workdir", required=True)
+    p.add_argument("--max_steps_per_epoch", type=int, default=None)
+    p.add_argument("--debug_nans", action="store_true",
+                   help="autograd anomaly detection (the reference's "
+                        "always-on check, off by default for speed)")
+    p.add_argument("--resume_from", default=None,
+                   help="checkpoint to resume from (params, optimizer, EMA, "
+                        "step; a mid-epoch checkpoint resumes inside its "
+                        "epoch exactly)")
+    args = p.parse_args(argv)
+    cfg = train_config_from_args(args)
+    if args.debug:
+        args.max_steps_per_epoch = 1
+    return train(cfg, args.workdir,
+                 max_steps_per_epoch=args.max_steps_per_epoch,
+                 debug_nans=args.debug_nans, resume_from=args.resume_from,
+                 device=args.device)
+
+
+if __name__ == "__main__":
+    main()

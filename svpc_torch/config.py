@@ -95,7 +95,7 @@ class ModelConfig:
     # hand-written kernel (svpc_torch/ops/attention.py) whatever its value
     use_pallas: bool = False
     # training knob of svpc_tpu (jax.checkpoint per layer); kept for
-    # sidecars, unused until the training slice
+    # sidecars, the port's trainer raises for it (not ported yet)
     remat: bool = False
 
     @property
@@ -154,11 +154,12 @@ class DataConfig:
 class TrainConfig:
     """Optimization / loop configuration (reference defaults of record).
 
-    The port reads only ``pack_clips``, ``pack_clip_multiple``,
-    ``pack_v_multiple`` and ``val_batch_size`` (serving).  The other fields
-    are svpc_tpu's training, parallelism and PRNG settings, kept with their
-    defaults so config sidecars round-trip; what each does is documented
-    in svpc_tpu/config.py until the training slice ports it."""
+    The trainer (train/loop.py) reads the optimization, schedule, EMA,
+    checkpoint and layout fields.  The parallelism fields (``dp_size``,
+    ``tp_size``, ``pp_size``, ``pp_microbatches``, ``zero1``,
+    ``multihost_sharded_data``), ``steps_per_dispatch``, ``donate_state``
+    and ``rng_impl`` are svpc_tpu's, kept so config sidecars round-trip;
+    the trainer raises for the ones it cannot honour."""
 
     lr: float = 1e-4
     lr_warmup_proportion: float = 0.1

@@ -22,7 +22,7 @@ memory back per clip (model/svpc.py).  The video token span can also be
 sliced to the batch max valid length rounded up to a bucket.
 
 The port's copy of svpc_tpu/data/packing.py (same layout, same numbers);
-the multi-host and repad/stack helpers wait for the training slice.
+the multi-host and repad/stack helpers wait for the parallelism slice.
 """
 
 from __future__ import annotations
@@ -232,3 +232,16 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
     for k, v in clip_arrays.items():
         out[f"clip_{k}"] = v
     return out
+
+
+def fixed_clip_budget(dataset, batch_size: int, multiple: int = 16) -> int:
+    """Max real-clip count over the dataset's deterministic (unshuffled)
+    batch partition, rounded up to ``multiple``: every eval batch then has
+    ONE packed shape."""
+    counts = [min(len(e["sentences"]), dataset.num_steps)
+              for e in dataset.data]
+    if not counts:
+        return multiple
+    sums = [sum(counts[i:i + batch_size])
+            for i in range(0, len(counts), batch_size)]
+    return _round_up(max(sums), multiple)

@@ -7,9 +7,8 @@ The model then loops over examples in Python (model.py:1059).
 
 Every video becomes one fixed-shape example ``(S, L, ...)`` with validity
 masks; a batch is a plain stack.  Everything downstream (model, decode) is
-mask-driven.  This is the port's copy of svpc_tpu/data/pipeline.py for
-the serving path: the numpy feature fill only (the native C++ packer and
-the training-time ``batches`` iterator come with later slices).
+mask-driven.  This is the port's copy of svpc_tpu/data/pipeline.py: the
+numpy feature fill only (the native C++ packer is a later slice).
 
 Shapes (per example):
   input_ids       (S, L)  int32     L = max_v_len + max_t_len
@@ -380,6 +379,61 @@ class CaptionDataset:
         if feature_ref is not None:
             meta["feature_ref"] = feature_ref
         return Example(arrays=arrays, meta=meta)
+
+    def work_key(self, index: int):
+        """(max clip frames, step count): the two geometry drivers of a
+        video's packed compute cost (video-span bucket x clip count)."""
+        e = self.data[index]
+        frm2sec = self.frame_to_second[self.video_name(e["name"])]
+        n = min(len(e["sentences"]), self.num_steps)
+        mx = max(int((ts[1] - ts[0]) / frm2sec) + 1
+                 for ts in e["timestamps"][:n])
+        return (min(mx, self.cfg.model.max_v_len - 2), n)
+
+    def batches(self, batch_size: int, shuffle: bool = False,
+                seed: int = 0, drop_remainder: bool = False,
+                pad_to_batch: bool = True, length_group: int = 0,
+                builder=None, skip: int = 0):
+        """Yield (Batch, metas) pairs.
+
+        The order is a permutation from ``RandomState(seed)`` when
+        ``shuffle``.  ``skip`` drops the first N batches BEFORE any
+        example or feature work (mid-epoch resume).  ``builder(examples,
+        padded_batch_size) -> Batch`` replaces the dense stack (e.g.
+        data/packing.pack_examples).  ``length_group=K`` (with shuffle)
+        sorts each window of K*batch_size shuffled videos by ``work_key``
+        before cutting batches, then shuffles the batch order."""
+        if batch_size <= 0:
+            raise ValueError(f"batch_size must be positive, got {batch_size}")
+        rng = np.random.RandomState(seed)
+        order = np.arange(len(self))
+        if shuffle:
+            order = rng.permutation(order)
+        if length_group and shuffle and len(order):
+            window = max(batch_size, length_group * batch_size)
+            batches = []
+            for i in range(0, len(order), window):
+                w = sorted(order[i:i + window],
+                           key=lambda j: self.work_key(int(j)))
+                batches.extend(w[j:j + batch_size]
+                               for j in range(0, len(w), batch_size))
+            rng.shuffle(batches)
+        else:
+            batches = [order[i:i + batch_size]
+                       for i in range(0, len(order), batch_size)]
+        if drop_remainder:
+            # filter BEFORE skip, so skip counts yielded batches
+            batches = [b for b in batches if len(b) == batch_size]
+        for idx in batches[skip:]:
+            examples = [self[int(j)] for j in idx]
+            eff = batch_size if pad_to_batch else len(idx)
+            if builder is not None:
+                batch = builder(examples, eff)
+            else:
+                batch = batch_examples(examples)
+                if eff > len(idx):
+                    batch = pad_batch_to(batch, eff)
+            yield batch, [e.meta for e in examples]
 
 
 def inference_entries(spec: Dict[str, dict], max_n_sen: int) -> List[dict]:

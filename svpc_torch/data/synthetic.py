@@ -1,7 +1,8 @@
 """Synthetic data made from a seed: fixed-shape numpy batches (tests,
-kernel checks) and an on-disk serving fixture (vocab, verb vocab,
-duration CSV and per-video feature files) that the serving path reads
-exactly like real YC2 data.  Nothing here reads outside data."""
+kernel checks), an on-disk serving fixture (vocab, verb vocab, duration
+CSV and per-video feature files) that the serving path reads exactly like
+real YC2 data, and a training fixture that adds annotated train / val
+split files.  Nothing here reads outside data."""
 
 from __future__ import annotations
 
@@ -183,3 +184,64 @@ def write_serving_fixture(root: str, cfg: Config, n_videos: int = 12,
     with open(paths["duration_file"], "w") as f:
         f.writelines(rows)
     return dict(paths, specs=specs)
+
+
+def write_training_fixture(root: str, cfg: Config, n_train: int,
+                           n_val: int, seed: int = 0, min_clips: int = 3,
+                           max_clips: int = 12) -> dict:
+    """Write a training fixture under ``root``: the serving fixture's
+    files for ``n_train + n_val`` videos, plus annotated split files under
+    the names data/anet.py loads (``bosselut_yc2_train_anet_format.json``
+    and ``bosselut_split_yc2_val_anet_format.json``), so ``root`` is the
+    ``data_dir``.  Each clip gets a sentence of fixture-vocabulary words,
+    the video's own ingredient words (out-of-vocabulary ones included, so
+    the copy path has targets) and the odd unknown word; each step gets an
+    ``alignment`` row over the ingredients and an ``action`` dict of one
+    or two verbs.  A video keeps at most ``cfg.model.max_oov`` distinct
+    out-of-vocabulary ingredient words (the annotated splits' budget).
+
+    Returns the serving fixture's dict plus ``data_dir``."""
+    from svpc_torch.data.anet import SPLIT_FILES
+
+    m = cfg.model
+    fx = write_serving_fixture(root, cfg, n_videos=n_train + n_val,
+                               min_clips=min_clips, max_clips=max_clips,
+                               seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    n_special = len(tok.SPECIAL_TOKENS)
+    vocab_word = lambda: f"word{n_special + rng.randint(m.vocab_size - n_special)}"
+    splits = {"train": {}, "val": {}}
+    for i, (name, spec) in enumerate(fx["specs"].items()):
+        oov, ingredients = set(), []
+        for ingr in spec["ingredients"]:
+            words = []
+            for w in ingr.split():
+                if not w.startswith("word") and w not in oov:
+                    if len(oov) >= m.max_oov:
+                        w = vocab_word()
+                    else:
+                        oov.add(w)
+                words.append(w)
+            ingredients.append(" ".join(words))
+        ingr_words = " ".join(ingredients).split()
+        sentences, alignment, action = [], [], []
+        for _ in spec["timestamps"]:
+            words = []
+            for _ in range(rng.randint(3, max(4, m.max_t_len - 3))):
+                r = rng.rand()
+                words.append(ingr_words[rng.randint(len(ingr_words))]
+                             if r < 0.2 else "zzunknown" if r < 0.25
+                             else vocab_word())
+            sentences.append(" ".join(words))
+            alignment.append([int(rng.rand() < 0.3)
+                              for _ in ingredients])
+            verbs = rng.choice(m.action_vocab_size,
+                               size=rng.randint(1, 3), replace=False)
+            action.append({f"verb{v}": int(v) for v in verbs})
+        splits["train" if i < n_train else "val"][name] = dict(
+            spec, ingredients=ingredients, sentences=sentences,
+            alignment=alignment, action=action)
+    for split, entries in splits.items():
+        with open(os.path.join(root, SPLIT_FILES[split]), "w") as f:
+            json.dump(entries, f)
+    return dict(fx, data_dir=root)

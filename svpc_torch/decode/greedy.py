@@ -13,7 +13,7 @@ from typing import Dict
 import torch
 
 from svpc_torch import tokenization as tok
-from svpc_torch.model.svpc import clip_view
+from svpc_torch.model.svpc import clip_view, scatter_clips
 
 NEG = -1e10
 
@@ -78,11 +78,6 @@ def greedy_decode(model, batch: Dict[str, torch.Tensor],
     ext_ids[:, :, T - 1] = oov_next
 
     out = text_ids if cfg.model_mode == "video" else ext_ids
-    if packed:
-        # scatter the (N, 1, T) clip rows back onto the (B, S, T) grid
-        Bv, Sv = batch["step_mask"].shape
-        rows = out[:, 0] * batch["clip_mask"].long()[:, None]
-        grid = torch.zeros(Bv, Sv, T, dtype=out.dtype, device=dev)
-        out = grid.index_put_((batch["clip_video"], batch["clip_step"]),
-                              rows, accumulate=True)
+    if packed:  # the (N, 1, T) clip rows back onto the (B, S, T) grid
+        out = scatter_clips(batch, out[:, 0], tuple(batch["step_mask"].shape))
     return out

@@ -1,13 +1,13 @@
-"""Decode postprocessing: ids -> sentences.
+"""Decode postprocessing: ids -> sentences -> submission JSON.
 
-Reference: translate.py:20-93 (consecutive-duplicate removal).  The
-submission-JSON helpers of svpc_tpu/decode/postprocess.py come with the
-evaluation slice.
+Reference: translate.py:20-93 (consecutive-duplicate removal, timestamp
+sort, anet-format submission structure).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -40,3 +40,27 @@ def batch_to_sentences(
             sents.append(sent)
         out.append(sents)
     return out
+
+
+def build_submission(results: Dict[str, List[dict]]) -> dict:
+    """anet-format submission JSON (reference translate.py:47-49, 92)."""
+    return {
+        "version": "VERSION 1.0",
+        "results": {k: sorted(v, key=lambda x: float(x["timestamp"][0]))
+                    for k, v in results.items()},
+        "external_data": {"used": "true", "details": "ay"},
+    }
+
+
+def collect_results(sentences: List[List[str]], metas: Sequence[dict],
+                    results: Optional[Dict[str, List[dict]]] = None):
+    """Accumulate one batch's sentences into a submission results dict."""
+    if results is None:
+        results = defaultdict(list)
+    for sents, meta in zip(sentences, metas):
+        for s, sent in enumerate(sents):
+            results[meta["name"]].append({
+                "sentence": sent,
+                "timestamp": meta["timestamps"][s],
+                "gt_sentence": meta["gt_sentences"][s]})
+    return results

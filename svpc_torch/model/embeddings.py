@@ -12,6 +12,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from svpc_torch.config import ModelConfig
@@ -34,6 +35,17 @@ def pe_buffer(module: nn.Module, max_len: int, dim: int) -> None:
                            persistent=False)
 
 
+def lookup(embedding: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``embedding(ids)`` as a product with one-hot rows: the same values
+    (one non-zero term a row), and a backward that is a matrix product.
+    On the card the embedding's own backward is not bitwise repeatable
+    when rows repeat many times (the 4-row token-type table, looked up at
+    every video frame, gave two identical steps different gradients), which
+    made a resumed run drift from an uninterrupted one."""
+    w = embedding.weight
+    return F.one_hot(ids, w.shape[0]).to(w.dtype) @ w
+
+
 def add_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
     """x (..., L, D) + pe[:L]."""
     return x + pe[: x.shape[-2]].to(x.dtype)
@@ -52,8 +64,8 @@ class WordFC(nn.Sequential):
             LayerNorm(cfg.hidden_size, cfg.layer_norm_eps))
         self.dropout_p = cfg.hidden_dropout_prob
 
-    def forward(self, x, deterministic: bool = True):
-        h = _dropout(self[0](x), self.dropout_p, deterministic)
+    def forward(self, x, deterministic: bool = True, generator=None):
+        h = _dropout(self[0](x), self.dropout_p, deterministic, generator)
         return self[4](torch.relu(self[2](h)))
 
 
@@ -68,14 +80,15 @@ class TextEmbeddings(nn.Module):
         self.word_fc = WordFC(cfg, cfg.word_vec_size)
         pe_buffer(self, cfg.max_position_embeddings, cfg.hidden_size)
 
-    def forward(self, text_ids, deterministic: bool = True):
-        emb = self.word_fc(self.word_embeddings(text_ids), deterministic)
+    def forward(self, text_ids, deterministic: bool = True, generator=None):
+        emb = self.word_fc(lookup(self.word_embeddings, text_ids),
+                           deterministic, generator)
         return add_position_encoding(emb, self.pe)
 
     def embed_position(self, tok_ids, t: int):
         """Embed tokens that all sit at sequence position ``t``:
         tok_ids (..., 1) -> (..., 1, H) with PE row t added."""
-        emb = self.word_fc(self.word_embeddings(tok_ids), True)
+        emb = self.word_fc(lookup(self.word_embeddings, tok_ids), True)
         return emb + self.pe[t].to(emb.dtype)
 
     @property
@@ -92,8 +105,9 @@ class VideoEmbeddings(nn.Module):
         self.video_embeddings = WordFC(cfg, cfg.video_feature_size)
         pe_buffer(self, cfg.max_position_embeddings, cfg.hidden_size)
 
-    def forward(self, video_features, deterministic: bool = True):
-        h = self.video_embeddings(video_features, deterministic)
+    def forward(self, video_features, deterministic: bool = True,
+                generator=None):
+        h = self.video_embeddings(video_features, deterministic, generator)
         return add_position_encoding(h, self.pe)
 
 
@@ -131,8 +145,10 @@ class IngredientEmbeddings(nn.Module):
         pe_buffer(self, max(cfg.max_position_embeddings, cfg.max_entities),
                   cfg.hidden_size)
 
-    def forward(self, ingr_ids, ingr_sep_mask, deterministic: bool = True):
-        emb = self.word_fc(self.word_embeddings(ingr_ids), deterministic)
+    def forward(self, ingr_ids, ingr_sep_mask, deterministic: bool = True,
+                generator=None):
+        emb = self.word_fc(lookup(self.word_embeddings, ingr_ids),
+                           deterministic, generator)
         seg = entity_segment_matrix(ingr_sep_mask, self.max_entities)
         pooled = torch.einsum("bei,bih->beh", seg.to(emb.dtype), emb)
         return add_position_encoding(pooled, self.pe)

@@ -5,7 +5,11 @@ reference PyTorch names (svpc_tpu/model/import_torch.py:_encoder,
 :_decoder), so reference checkpoints load with ``strict=True``.  Every
 deterministic attention goes through ``ops.attention.fused_attention``:
 the hand-written kernel on a CUDA tensor, ``attention_plain`` on a CPU
-one.  The additive mask ``(1 - m) * -10000`` is kept exactly.
+one.  A non-deterministic attention (training) runs ``attention_plain``
+under autograd, with dropout on its probabilities, as svpc_tpu runs
+``attention_core`` outside its Pallas kernel there.  The additive mask
+``(1 - m) * -10000`` is kept exactly.  Every dropout draw comes from the
+``generator`` passed down the call (the training step seeds one per step).
 """
 
 from __future__ import annotations
@@ -14,7 +18,6 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from svpc_torch.config import ModelConfig
@@ -43,8 +46,13 @@ class LayerNorm(nn.Module):
         return d * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
-def _dropout(x: torch.Tensor, p: float, deterministic: bool) -> torch.Tensor:
-    return F.dropout(x, p, training=not deterministic and p > 0)
+def _dropout(x: torch.Tensor, p: float, deterministic: bool,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout whose mask is drawn from ``generator``."""
+    if deterministic or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep / (1.0 - p)
 
 
 class MultiHeadAttention(nn.Module):
@@ -71,15 +79,17 @@ class MultiHeadAttention(nn.Module):
         return fused_attention(q, k, v, mask, self.num_heads)
 
     def forward(self, q_states, k_states, v_states, mask,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         q = self.query(q_states)
         k = self.key(k_states)
         v = self.value(v_states)
-        if deterministic or self.dropout_p == 0.0:
+        if deterministic:
             return fused_attention(q, k, v, mask, self.num_heads)
-        # dropout on the probabilities: the plain path (training slice)
+        # training: the differentiable plain version, dropout included
+        # (svpc_tpu/model/layers.py:119-128; the kernel has no backward)
         return attention_plain(q, k, v, mask, self.num_heads,
-                               dropout_p=self.dropout_p)
+                               dropout_p=self.dropout_p, generator=generator)
 
 
 class SelfOutput(nn.Module):
@@ -92,8 +102,10 @@ class SelfOutput(nn.Module):
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.dropout_p = cfg.hidden_dropout_prob
 
-    def forward(self, hidden, residual, deterministic: bool = True):
-        h = _dropout(self.dense(hidden), self.dropout_p, deterministic)
+    def forward(self, hidden, residual, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        h = _dropout(self.dense(hidden), self.dropout_p, deterministic,
+                     generator)
         return self.LayerNorm(h + residual)
 
 
@@ -105,9 +117,9 @@ class AttentionBlock(nn.Module):
         self.self = MultiHeadAttention(cfg)
         self.output = SelfOutput(cfg, cfg.hidden_size)
 
-    def forward(self, x, mask, deterministic: bool = True):
-        ctx = self.self(x, x, x, mask, deterministic)
-        return self.output(ctx, x, deterministic)
+    def forward(self, x, mask, deterministic: bool = True, generator=None):
+        ctx = self.self(x, x, x, mask, deterministic, generator)
+        return self.output(ctx, x, deterministic, generator)
 
 
 class Intermediate(nn.Module):
@@ -131,16 +143,16 @@ class EncoderLayer(nn.Module):
         self.output = SelfOutput(cfg, cfg.intermediate_size)
 
     def forward(self, x, mask_1d, diagonal_mask: bool = False,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         mask = mask_1d[:, None, :]  # (N, 1, L) key padding
         if diagonal_mask:
             lq = x.shape[1]
             causal = torch.tril(torch.ones(lq, lq, dtype=x.dtype,
                                            device=x.device))
             mask = mask * causal[None]
-        attn_out = self.attention(x, mask, deterministic)
+        attn_out = self.attention(x, mask, deterministic, generator)
         inter = self.hidden_intermediate(attn_out)
-        return self.output(inter, attn_out, deterministic)
+        return self.output(inter, attn_out, deterministic, generator)
 
 
 class Encoder(nn.Module):
@@ -152,9 +164,9 @@ class Encoder(nn.Module):
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x, mask_1d, diagonal_mask: bool = False,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         for layer in self.layer:
-            x = layer(x, mask_1d, diagonal_mask, deterministic)
+            x = layer(x, mask_1d, diagonal_mask, deterministic, generator)
         return x
 
 
@@ -172,17 +184,19 @@ class DecoderLayer(nn.Module):
         self.output = SelfOutput(cfg, cfg.hidden_size)
 
     def forward(self, dec, dec_mask, enc_out, enc_mask,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         lt = dec.shape[1]
         causal = torch.tril(torch.ones(lt, lt, dtype=dec.dtype,
                                        device=dec.device))
         self_mask = dec_mask[:, None, :] * causal[None]  # (N, T, T) full
-        attn = self.self_attention(dec, dec, dec, self_mask, deterministic)
+        attn = self.self_attention(dec, dec, dec, self_mask, deterministic,
+                                   generator)
         attn = self.norm1(attn + dec)
         cross = self.dec_enc_attention(attn, enc_out, enc_out,
-                                       enc_mask[:, None, :], deterministic)
+                                       enc_mask[:, None, :], deterministic,
+                                       generator)
         cross = self.norm2(attn + cross)
-        return self.output(cross, cross, deterministic)
+        return self.output(cross, cross, deterministic, generator)
 
     def project_enc_kv(self, enc_out):
         """Cross-attention K/V of the static encoder memory, projected once
@@ -219,9 +233,10 @@ class Decoder(nn.Module):
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, dec, dec_mask, enc_out, enc_mask,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         for layer in self.layer:
-            dec = layer(dec, dec_mask, enc_out, enc_mask, deterministic)
+            dec = layer(dec, dec_mask, enc_out, enc_mask, deterministic,
+                        generator)
         return dec
 
     def project_enc_kv(self, enc_out) -> List[Tuple[torch.Tensor,

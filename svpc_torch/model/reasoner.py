@@ -51,7 +51,8 @@ class EntityReasoner(nn.Module):
         self.W4 = nn.Linear(cfg.word_vec_size, 1)
 
     def forward(self, step_vectors, entity_init, entity_mask,
-                deterministic: bool = True) -> ReasonerOutputs:
+                deterministic: bool = True,
+                generator=None) -> ReasonerOutputs:
         """step_vectors (B,S,H), entity_init (B,E,H) already zero on invalid
         slots, entity_mask (B,E)."""
         B, S, _ = step_vectors.shape
@@ -59,7 +60,7 @@ class EntityReasoner(nn.Module):
 
         # (1) action selector (Eq.1)
         h = torch.relu(self.action_selector[0](step_vectors))
-        h = _dropout(h, self.dropout_p, deterministic)
+        h = _dropout(h, self.dropout_p, deterministic, generator)
         ac_probs = torch.sigmoid(self.action_selector[3](h))      # (B,S,A)
         bar_ft = (_safe_div(ac_probs, ac_probs.sum(-1, keepdim=True))
                   @ self.action_embeddings)

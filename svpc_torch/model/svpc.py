@@ -1,11 +1,12 @@
 """State-aware recursive transformer — the top model.
 
 The port of svpc_tpu/model/svpc.py (reference StateAwareRecursiveTransformer,
-model.py:826-1189) for inference: encoding in all four ablation modes
-("full" = vivt, "reason_copy" = viv, "copy" = vi, "video" = v), the
-teacher-forced scorer and the KV-cached incremental scorer that greedy
-decoding drives.  Training (``forward`` with its losses, ``reconstruct``)
-comes with the training slice.
+model.py:826-1189): encoding in all four ablation modes ("full" = vivt,
+"reason_copy" = viv, "copy" = vi, "video" = v), the teacher-forced scorer,
+the KV-cached incremental scorer that greedy decoding drives, the textual
+re-simulator (``reconstruct``) and the training forward with its losses.
+Every random draw (dropout, Gumbel noise) comes from the ``generator``
+passed to ``forward``.
 
 Batches are dicts of tensors in the JAX package's layouts: dense
 ``(B, S, ...)`` grids, or the packed per-clip layout of data/packing.py
@@ -22,18 +23,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from svpc_torch import tokenization as tok
 from svpc_torch.config import ModelConfig
 from svpc_torch.model.embeddings import (IngredientEmbeddings, TextEmbeddings,
                                          VideoEmbeddings,
-                                         add_position_encoding, sinusoid_table)
+                                         add_position_encoding, lookup,
+                                         sinusoid_table)
 from svpc_torch.model.layers import Decoder, Encoder, LMPredictionHead
 from svpc_torch.model.lstm import BiLSTM
 from svpc_torch.model.pointer import pointer_generator
 from svpc_torch.model.reasoner import EntityReasoner, ReasonerOutputs
+from svpc_torch.ops.gumbel import gumbel_softmax_st
+from svpc_torch.ops.losses import (asymmetric_loss_sum, bce_sum,
+                                   label_smoothing_kl)
 from svpc_torch.precision import check_compute_dtype
 
-_TRAINING_SLICE = ("comes with the training slice (ROADMAP.md, Queue 1: "
-                   "training)")
+NEG_INF = -1e30
 
 
 def to_tensors(batch: Dict[str, np.ndarray],
@@ -48,12 +53,37 @@ def to_tensors(batch: Dict[str, np.ndarray],
     return out
 
 
+def scatter_clips(batch, rows: torch.Tensor,
+                  grid_shape: Tuple[int, int]) -> torch.Tensor:
+    """Packed per-clip rows (N, D) -> the (B, S, D) step grid, zero at
+    padded steps (padding clips are masked out before the scatter)."""
+    rows = rows * batch["clip_mask"][:, None].to(rows.dtype)
+    grid = rows.new_zeros(grid_shape + rows.shape[1:])
+    return grid.index_put((batch["clip_video"], batch["clip_step"]), rows,
+                          accumulate=True)
+
+
 def clip_view(batch) -> Dict[str, torch.Tensor]:
     """Per-clip view of the per-video arrays the LM head + pointer read,
     so the scorers run on a packed (N, 1, ...) pseudo-batch unchanged."""
     cv = batch["clip_video"]
     return {k: batch[k][cv]
             for k in ("entity_mask", "copy_ids", "copy_weights", "oov_count")}
+
+
+class ModelOutputs(NamedTuple):
+    total_loss: torch.Tensor
+    caption_loss: torch.Tensor
+    entity_loss: torch.Tensor
+    action_loss: torch.Tensor
+    re_entity_loss: torch.Tensor
+    re_action_loss: torch.Tensor
+    prediction_scores: torch.Tensor      # (B, S, T, C) probabilities
+    ent_probs: Optional[torch.Tensor]    # (B, S, E)
+    ac_probs: Optional[torch.Tensor]     # (B, S, A)
+    re_ent_probs: Optional[torch.Tensor]
+    re_ac_probs: Optional[torch.Tensor]
+    memory: Optional[Dict[str, torch.Tensor]]
 
 
 class EncodedState(NamedTuple):
@@ -132,12 +162,13 @@ class SVPCModel(nn.Module):
     # encoding
     # ------------------------------------------------------------------ #
 
-    def _step_encode(self, cls_grid, step_mask, deterministic):
+    def _step_encode(self, cls_grid, step_mask, deterministic, generator):
         step_in = add_position_encoding(cls_grid, self.step_pe)
         return self.step_wise_encoder(step_in, step_mask, False,
-                                      deterministic)
+                                      deterministic, generator)
 
-    def encode_clips(self, batch, deterministic: bool = True):
+    def encode_clips(self, batch, deterministic: bool = True,
+                     generator=None):
         """Dense layout: encode every (B*S) clip's video span and step-encode
         the [CLS] summaries -> (B, S, H)."""
         B, S, L = batch["input_ids"].shape
@@ -145,14 +176,15 @@ class SVPCModel(nn.Module):
         flat = lambda x: x.reshape((B * S,) + x.shape[2:])
         vid_ids = flat(batch["input_ids"][:, :, :Lv])
         emb = self.video_embeddings(
-            flat(batch["video_feature"][:, :, :Lv]), deterministic)
-        emb = emb + self.token_type_embeddings(vid_ids)
+            flat(batch["video_feature"][:, :, :Lv]), deterministic, generator)
+        emb = emb + lookup(self.token_type_embeddings, vid_ids)
         enc = self.encoder(emb, flat(batch["input_mask"][:, :, :Lv]), False,
-                           deterministic)
+                           deterministic, generator)
         return self._step_encode(enc[:, 0].reshape(B, S, -1),
-                                 batch["step_mask"], deterministic)
+                                 batch["step_mask"], deterministic, generator)
 
-    def encode_clips_packed(self, batch, deterministic: bool = True):
+    def encode_clips_packed(self, batch, deterministic: bool = True,
+                            generator=None):
         """Packed layout: encode only the real clips (N, L) and scatter
         their [CLS] summaries onto the (B, S) step grid (zeros at padded
         steps)."""
@@ -160,36 +192,39 @@ class SVPCModel(nn.Module):
         Lv = L - self.cfg.max_t_len
         B, S = batch["step_mask"].shape
         emb = self.video_embeddings(batch["clip_video_feature"][:, :Lv],
-                                    deterministic)
-        emb = emb + self.token_type_embeddings(batch["clip_input_ids"][:, :Lv])
+                                    deterministic, generator)
+        emb = emb + lookup(self.token_type_embeddings,
+                           batch["clip_input_ids"][:, :Lv])
         enc = self.encoder(emb, batch["clip_input_mask"][:, :Lv], False,
-                           deterministic)
-        cls_vec = enc[:, 0] * batch["clip_mask"][:, None]
-        grid = cls_vec.new_zeros(B, S, cls_vec.shape[-1])
-        grid.index_put_((batch["clip_video"], batch["clip_step"]), cls_vec,
-                        accumulate=True)
-        return self._step_encode(grid, batch["step_mask"], deterministic)
+                           deterministic, generator)
+        grid = scatter_clips(batch, enc[:, 0], (B, S))
+        return self._step_encode(grid, batch["step_mask"], deterministic,
+                                 generator)
 
-    def encode(self, batch, deterministic: bool = True) -> EncodedState:
+    def encode(self, batch, deterministic: bool = True,
+               generator=None) -> EncodedState:
         """Clips, ingredients, reasoner and cross-attention memory.  In the
         packed layout ga_inputs / pointer_vectors come out gathered per
         clip as (N, 1, M, H) / (N, 1, E, H)."""
         cfg = self.cfg
         mode = cfg.model_mode
         packed = "clip_video" in batch
-        step_vectors = (self.encode_clips_packed(batch, deterministic)
-                        if packed else self.encode_clips(batch, deterministic))
+        step_vectors = (
+            self.encode_clips_packed(batch, deterministic, generator)
+            if packed else self.encode_clips(batch, deterministic, generator))
         B, S, H = step_vectors.shape
 
         ingr_vectors = reasoner_out = pointer_vectors = None
         if mode != "video":
             ingr_vectors = self.ingredient_embeddings(
-                batch["ingr_ids"], batch["ingr_sep_mask"], deterministic)
+                batch["ingr_ids"], batch["ingr_sep_mask"], deterministic,
+                generator)
             ingr_vectors = ingr_vectors * batch["entity_mask"][..., None]
 
         if mode in ("full", "reason_copy"):
             reasoner_out = self.reasoner(step_vectors, ingr_vectors,
-                                         batch["entity_mask"], deterministic)
+                                         batch["entity_mask"], deterministic,
+                                         generator)
             ent_vec = torch.relu(self.Went(reasoner_out.step_entity_vectors))
             act_vec = torch.relu(self.Wac(reasoner_out.step_action_vectors))
             ga_inputs = torch.stack([step_vectors, ent_vec, act_vec], dim=2)
@@ -226,15 +261,16 @@ class SVPCModel(nn.Module):
     # ------------------------------------------------------------------ #
 
     def decode_hidden(self, state: EncodedState, text_ids, text_mask,
-                      deterministic: bool = True):
+                      deterministic: bool = True, generator=None):
         """Causal decoder over a text hypothesis -> (B, S, T, H)."""
         B, S, T = text_ids.shape
         M = state.ga_inputs.shape[2]
         text_emb = self.text_embeddings(text_ids.reshape(B * S, T),
-                                        deterministic)
+                                        deterministic, generator)
         dec = self.decoder(text_emb, text_mask.reshape(B * S, T),
                            state.ga_inputs.reshape(B * S, M, -1),
-                           text_emb.new_ones(B * S, M), deterministic)
+                           text_emb.new_ones(B * S, M), deterministic,
+                           generator)
         return dec.reshape(B, S, T, -1)
 
     def head_probs(self, batch, state: EncodedState, dec):
@@ -258,9 +294,10 @@ class SVPCModel(nn.Module):
         return probs * col_valid[:, None, None, :]
 
     def score_text(self, batch, state: EncodedState, text_ids, text_mask,
-                   deterministic: bool = True):
+                   deterministic: bool = True, generator=None):
         """Decoder + head over a text hypothesis -> (B, S, T, C)."""
-        dec = self.decode_hidden(state, text_ids, text_mask, deterministic)
+        dec = self.decode_hidden(state, text_ids, text_mask, deterministic,
+                                 generator)
         return self.head_probs(batch, state, dec)
 
     def score_position(self, batch, state: EncodedState, text_ids,
@@ -298,12 +335,134 @@ class SVPCModel(nn.Module):
         return probs[:, :, 0], caches
 
     # ------------------------------------------------------------------ #
-    # training (later slice)
+    # textual re-simulator
     # ------------------------------------------------------------------ #
 
-    def reconstruct(self, *args, **kwargs):
-        raise NotImplementedError(f"the textual re-simulator {_TRAINING_SLICE}")
+    def reconstruct(self, batch, prediction_scores, text_mask, ingr_vectors,
+                    deterministic: bool = True, oov_count=None,
+                    generator=None) -> ReasonerOutputs:
+        """Straight-through re-simulation over generated text (reference
+        model.py:1017-1025).  Dense: prediction_scores (B, S, T, C).
+        Packed: (N, 1, T, C) with ``oov_count`` gathered per clip; the
+        per-step bag-of-words means are scattered onto the (B, S) grid
+        before the recipe BiLSTM."""
+        cfg = self.cfg
+        C = prediction_scores.shape[-1]
+        logits = torch.log(prediction_scores + 1e-12)
+        # exclude the fixed-shape padding columns the reference never has
+        if oov_count is None:
+            oov_count = batch["oov_count"]
+        ext = cfg.vocab_size + oov_count
+        cols = torch.arange(C, device=logits.device)
+        logits = torch.where(cols < ext[:, None, None, None], logits,
+                             logits.new_tensor(NEG_INF))
+        onehot = gumbel_softmax_st(logits, cfg.temperature, generator)
+        V = cfg.vocab_size
+        bow = onehot[..., :V] @ self.text_embeddings.table[:V]  # (B,S,T,W)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(f"the training forward and its losses "
-                                  f"{_TRAINING_SLICE}")
+        tm = text_mask[..., None]
+        counts = torch.clamp(tm.sum(2), min=1.0)
+        step_bow = (bow * tm).sum(2) / counts                   # (B, S, W)
+        if "clip_video" in batch:
+            step_bow = scatter_clips(batch, step_bow[:, 0],
+                                     tuple(batch["step_mask"].shape))
+
+        hs = self.recipe_encoder(step_bow, batch["step_mask"])  # (B, S, 2H)
+        hs = hs[..., :cfg.hidden_size] + hs[..., cfg.hidden_size:]
+        return self.recipe_reasoner(hs, ingr_vectors, batch["entity_mask"],
+                                    deterministic, generator)
+
+    # ------------------------------------------------------------------ #
+    # training forward + losses
+    # ------------------------------------------------------------------ #
+
+    def _action_loss(self, probs, targets, row_mask):
+        """ASL by default (the reference hardcodes AsymmetricLoss at
+        model.py:872); ``use_asl=False`` is the advertised BCE ablation."""
+        if self.cfg.use_asl:
+            return asymmetric_loss_sum(probs, targets, row_mask)
+        return bce_sum(probs, targets, row_mask[..., None])
+
+    def forward(self, batch, deterministic: bool = True,
+                return_memory: bool = False,
+                generator: Optional[torch.Generator] = None) -> ModelOutputs:
+        """Teacher-forced scores and every loss (svpc_tpu/model/svpc.py
+        ``__call__``).  The total is ``caption + entity + action +
+        lambda_ * (re_entity + re_action)``, each a sum over the batch."""
+        cfg = self.cfg
+        T = cfg.max_t_len
+        packed = "clip_video" in batch
+        state = self.encode(batch, deterministic, generator)
+
+        if packed:  # pseudo-batch: batch axis = packed clips, one step
+            N, L = batch["clip_input_ids"].shape
+            Lv = L - T
+            B, S = N, 1
+            text_ids = batch["clip_input_ids"][:, None, Lv:]
+            text_mask = batch["clip_input_mask"][:, None, Lv:]
+            labels = batch["clip_input_labels"][:, None, Lv:]
+            head_batch = clip_view(batch)
+        else:
+            B, S, L = batch["input_ids"].shape
+            Lv = L - T
+            text_ids = batch["input_ids"][:, :, Lv:]
+            text_mask = batch["input_mask"][:, :, Lv:]
+            labels = batch["input_labels"][:, :, Lv:]            # extended ids
+            head_batch = batch
+
+        if cfg.model_mode == "video":
+            # OOV labels fold to UNK (model.py:1013)
+            labels = torch.where(labels >= cfg.vocab_size,
+                                 torch.full_like(labels, tok.UNK), labels)
+            ext_size = torch.full((B,), cfg.vocab_size, dtype=torch.long,
+                                  device=labels.device)
+        else:
+            ext_size = cfg.vocab_size + head_batch["oov_count"]
+
+        probs = self.score_text(head_batch, state, text_ids, text_mask,
+                                deterministic, generator)
+        # caption loss over each row's actual columns; rows of padded steps
+        # carry IGNORE labels (data pipeline)
+        caption_loss = label_smoothing_kl(
+            probs.reshape(-1, probs.shape[-1]), labels.reshape(-1),
+            ext_size.repeat_interleave(S * T), cfg.label_smoothing)
+
+        zero = probs.new_zeros(())
+        entity_loss = action_loss = re_entity_loss = re_action_loss = zero
+        ent_probs = ac_probs = re_ent_probs = re_ac_probs = memory = None
+        sup_mask = batch["step_mask"][..., None] * batch["entity_mask"][:, None]
+
+        if cfg.model_mode in ("full", "reason_copy"):
+            r = state.reasoner
+            entity_loss = bce_sum(r.ent_probs, batch["alignment"], sup_mask)
+            action_loss = self._action_loss(r.ac_probs, batch["action"],
+                                            batch["action_row_mask"])
+            ent_probs, ac_probs = r.ent_probs, r.ac_probs
+            if return_memory:
+                memory = dict(entity_probs=r.ent_probs,
+                              action_probs=r.ac_probs,
+                              ingr_vectors=state.ingr_vectors,
+                              step_entity_vectors=r.all_entity_vectors)
+
+        if cfg.model_mode == "full":
+            re = self.reconstruct(batch, probs, text_mask, state.ingr_vectors,
+                                  deterministic, head_batch["oov_count"],
+                                  generator)
+            re_entity_loss = bce_sum(re.ent_probs, batch["alignment"],
+                                     sup_mask)
+            re_action_loss = self._action_loss(re.ac_probs, batch["action"],
+                                               batch["action_row_mask"])
+            re_ent_probs, re_ac_probs = re.ent_probs, re.ac_probs
+            if return_memory:
+                memory.update(re_pred_entity_probs=re.ent_probs,
+                              re_pred_action_probs=re.ac_probs,
+                              re_entity_vectors=re.all_entity_vectors)
+
+        total = (caption_loss + entity_loss + action_loss
+                 + cfg.lambda_ * (re_entity_loss + re_action_loss))
+        return ModelOutputs(
+            total_loss=total, caption_loss=caption_loss,
+            entity_loss=entity_loss, action_loss=action_loss,
+            re_entity_loss=re_entity_loss, re_action_loss=re_action_loss,
+            prediction_scores=probs, ent_probs=ent_probs, ac_probs=ac_probs,
+            re_ent_probs=re_ent_probs, re_ac_probs=re_ac_probs, memory=memory)

@@ -176,11 +176,18 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors: ``attention_plain``.  CUDA tensors: the hand-written
     kernel's tile or decode path (``_plan``), or an exception (wrong
-    device, dtype, shape, layout, alignment, or a refused launch)."""
+    device, dtype, shape, layout, alignment, inputs that want a gradient,
+    or a refused launch).  The kernel has no backward, as the Pallas kernel
+    has none: training runs ``attention_plain`` under autograd."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask, num_heads)
     if q.device.type != "cuda":
         raise RuntimeError(f"fused_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "fused_attention: q, k or v requires a gradient, and the kernel "
+            "has none; run the forward deterministically under "
+            "torch.no_grad(), or non-deterministically (attention_plain)")
     for name, t in (("k", k), ("v", v), ("mask", mask)):
         if t.device != q.device:
             raise RuntimeError(f"fused_attention: {name} on {t.device}, "

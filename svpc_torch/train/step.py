@@ -1,0 +1,158 @@
+"""Train and eval steps with the reference's metric bookkeeping: the port
+of svpc_tpu/train/step.py.
+
+Metrics reproduce the reference: token accuracy over valid label positions
+(train.py:32-38) and thresholded entity/action P/R counts (train.py:40-49).
+Losses are sums, so gradients accumulated over microbatches equal one big
+batch's.
+
+Randomness: every dropout mask and the Gumbel noise of a train step come
+from one ``torch.Generator`` seeded from ``(seed, step)`` (and the
+microbatch under accumulation), as svpc_tpu folds its key by
+``state.step``: a resumed run draws what an uninterrupted one would have.
+The streams differ from JAX's, a seed-like difference.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from svpc_torch import tokenization as tok
+from svpc_torch.config import Config
+from svpc_torch.train.optim import ema_update, grad_norms, total_norm
+from svpc_torch.train.state import TrainState
+
+
+def step_generator(device, seed: int, *counters: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` and ``counters``
+    (e.g. the step), mixed so that nearby pairs give unrelated streams."""
+    mixed = np.random.SeedSequence([seed, *counters]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(
+        int(mixed) & (2 ** 63 - 1))
+
+
+def batch_metrics(out, batch, cfg: Config) -> Dict[str, torch.Tensor]:
+    """Sum-counts for the epoch aggregator (tensors on the batch's device).
+    Token accuracy is against the UNMUTATED extended labels, as the
+    reference's cal_performance does even in video mode (train.py:32-38)."""
+    T = cfg.model.max_t_len
+    if "clip_video" in batch:
+        labels = batch["clip_input_labels"][:, None, -T:]
+    else:
+        labels = batch["input_labels"][:, :, -T:]
+    pred = out.prediction_scores.argmax(-1)
+    valid = labels != tok.IGNORE
+    metrics = dict(loss=out.total_loss.detach(),
+                   caption_loss=out.caption_loss.detach(),
+                   n_correct=((pred == labels) & valid).sum(),
+                   n_word=valid.sum())
+    if out.ent_probs is not None:
+        sup = batch["step_mask"][..., None] * batch["entity_mask"][:, None]
+        p = (out.ent_probs.detach() > 0.5) & (sup > 0)
+        row = batch["step_mask"][..., None]
+        pa = (out.ac_probs.detach() > 0.5) & (row > 0)
+        metrics.update(
+            ent_correct=(batch["alignment"] * p).sum(),
+            ent_recall=(batch["alignment"] * sup).sum(),
+            ent_precision=p.sum(),
+            ac_correct=(batch["action"] * pa).sum(),
+            ac_recall=(batch["action"] * row).sum(),
+            ac_precision=pa.sum())
+    return metrics
+
+
+def grad_step(state: TrainState, batch, cfg: Config,
+              generator: Optional[torch.Generator]) -> Dict:
+    """Forward (non-deterministic) and backward of the summed loss; the
+    gradients ADD into the parameters' ``.grad`` (accumulation)."""
+    out = state.model(batch, deterministic=False, generator=generator)
+    out.total_loss.backward()
+    return batch_metrics(out, batch, cfg)
+
+
+def apply_step(state: TrainState, cfg: Config,
+               loss: Optional[torch.Tensor] = None) -> Dict:
+    """The optimizer and EMA update from the accumulated ``.grad``, which
+    it then clears.  With ``skip_nonfinite_updates`` a step whose gradient
+    norm (or ``loss``) is not finite keeps parameters, moments and shadow,
+    and is counted; the check reads the norm on the host."""
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in state.params.items()}
+    norms = grad_norms(list(grads.values()))  # the optimizer's order
+    grad_norm = total_norm(norms)
+    metrics = {"grad_norm": grad_norm}
+    ok = True
+    if cfg.train.skip_nonfinite_updates:
+        finite = torch.isfinite(grad_norm)
+        if loss is not None:
+            finite = finite & torch.isfinite(loss)
+        ok = bool(finite)
+        metrics["nonfinite_skipped"] = int(not ok)
+    if ok:
+        state.optimizer.update(grads, norms)
+        if state.ema_shadow is not None and cfg.train.ema_decay > 0:
+            ema_update(state.ema_shadow, state.params, state.step,
+                       cfg.train.ema_decay)
+    for p in state.params.values():
+        p.grad = None
+    state.step += 1
+    return metrics
+
+
+def train_step(state: TrainState, batch, cfg: Config) -> Dict:
+    """One optimizer step on one batch: forward, backward, global clip,
+    BertAdam, EMA; the generator is seeded from ``(seed, state.step)``."""
+    device = next(iter(state.params.values())).device
+    m = grad_step(state, batch, cfg,
+                  step_generator(device, cfg.train.seed, state.step))
+    m.update(apply_step(state, cfg, loss=m["loss"]))
+    return m
+
+
+@torch.no_grad()
+def eval_step(model, batch, cfg: Config,
+              generator: Optional[torch.Generator]) -> Dict:
+    """Deterministic teacher-forced metrics (on the card every attention
+    runs the hand-written kernel); ``generator`` feeds the re-simulator's
+    Gumbel noise, which eval still draws."""
+    out = model(batch, deterministic=True, generator=generator)
+    return batch_metrics(out, batch, cfg)
+
+
+def sum_metrics(metric_list) -> Dict[str, float]:
+    """Per-key sums, in list order, as Python floats."""
+    sums: Dict[str, float] = {}
+    for m in metric_list:
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+    return sums
+
+
+def aggregate_metrics(metric_list) -> Dict[str, float]:
+    """Epoch-level aggregation mirroring the reference logs.  An entry may
+    be an earlier ``sum_metrics`` result (a resumed epoch's first part):
+    the sums then come out bit for bit as if it had not been cut."""
+    sums = sum_metrics(metric_list)
+    n_word = max(sums.get("n_word", 1.0), 1.0)
+    out = dict(loss_per_word=sums.get("loss", 0.0) / n_word,
+               acc=sums.get("n_correct", 0.0) / n_word,
+               nonfinite_skipped=int(sums.get("nonfinite_skipped", 0)))
+
+    def f1(c, r, p):
+        recall = c / r if r else 0.0
+        precision = c / p if p else 0.0
+        if recall == 0 and precision == 0:
+            return dict(recall=0.0, precision=0.0, f1=0.0)
+        return dict(recall=recall, precision=precision,
+                    f1=2 * recall * precision / (recall + precision))
+
+    if "ent_correct" in sums:
+        out["entity"] = f1(sums["ent_correct"], sums["ent_recall"],
+                           sums["ent_precision"])
+        out["action"] = f1(sums["ac_correct"], sums["ac_recall"],
+                           sums["ac_precision"])
+    return out

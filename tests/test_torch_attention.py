@@ -203,8 +203,10 @@ def test_cuda_kernel_matches_plain():
     """The hand-written kernel against attention_plain on the card, at the
     serving path's forms, a long key axis, both sides of the path
     threshold, the widest head (dh=128) on both paths, a bf16 head
-    of 12 columns at Lq=100 (the decode path), and on a sequence that sees
-    no key at all; both paths run.
+    of 12 columns at Lq=100 (the decode path), the teacher-forced decoder's
+    cross-attention (Lq=22 over 3 memory slots, the validation path), and
+    on a sequence that sees no key at all; both paths run.  Inputs that
+    want a gradient are refused: the kernel has no backward.
 
     Run on the card with
     ``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``
@@ -223,6 +225,7 @@ def test_cuda_kernel_matches_plain():
                  (8, 12, 12, False, False, 12),
                  (96, 1, 22, False, False, 12), (96, 1, 3, False, False, 12),
                  (96, 22, 22, True, False, 12),
+                 (96, 22, 3, False, False, 12),
                  (96, 100, 100, False, True, 12),
                  (8, 300, 300, False, False, 12),
                  (96, DECODE_MAX_LQ, 22, True, False, 12),
@@ -255,3 +258,8 @@ def test_cuda_kernel_matches_plain():
         assert err <= row_tol, (n, lq, lk, nh, dtype, err)
     assert LAUNCHES["fused_attention.tile"] > 0
     assert LAUNCHES["fused_attention.decode"] > 0
+    q = q.float().requires_grad_()
+    with pytest.raises(RuntimeError, match="gradient"):
+        fused_attention(q, k.float(), v.float(), mask, nh)
+    with torch.no_grad():
+        fused_attention(q, k.float(), v.float(), mask, nh)

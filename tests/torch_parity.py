@@ -2,10 +2,15 @@
 same seeded numpy inputs and the same weights go through the JAX package
 and through svpc_torch, on the CPU in float32."""
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
+
+# the training parity runs: every dropout rate 0, deterministic=False
+DROPOUT_OFF = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                   reasoner_dropout_prob=0.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,3 +91,91 @@ def jax_apply(module, params, *args, method=None):
 
 def rand(seed: int, *shape) -> np.ndarray:
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def dropout_free(mode: str, seed: int = 0, layers: int = 1):
+    """(jax cfg, jax model, params, port cfg, port model) at
+    tiny_test_config(mode) with ``layers`` encoder/decoder layers (one by
+    default) and every dropout rate 0 on both sides (the training parity
+    tests compile JAX gradients, whose trace and compile time grow with
+    depth, so all but one case take one layer; the inference parity tests
+    hold the two-layer stack).
+
+    The JAX tree is built from the name mapping and the port's parameter
+    shapes (no flax init trace), with numpy draws from ``seed`` as in
+    ``jax_model``: LN scales 1 + N(0, 0.1), everything else N(0, 0.05)."""
+    from svpc_tpu.config import tiny_test_config as jax_tiny_config
+    from svpc_tpu.model import SVPCModel as JaxModel
+    from svpc_torch.config import tiny_test_config
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.from_jax import build_mapping, state_dict_from_jax
+
+    kw = dict(num_hidden_layers=layers, **DROPOUT_OFF)
+    jcfg = jax_tiny_config(mode).replace_model(**kw)
+    cfg = tiny_test_config(mode).replace_model(**kw)
+    model = SVPCModel(cfg.model)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    rng = np.random.RandomState(seed)
+    params = {}
+    for f_key, (t_key, transform) in sorted(build_mapping(mode, layers).items()):
+        shape = shapes[t_key][::-1] if transform == "T" else shapes[t_key]
+        value = (1.0 + 0.1 * rng.randn(*shape) if f_key.endswith("/scale")
+                 else 0.05 * rng.randn(*shape)).astype(np.float32)
+        *path, leaf = f_key.split("/")
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    params = {"params": params}
+    model.load_state_dict(state_dict_from_jax(params, cfg.model),
+                          strict=True)
+    return jcfg, JaxModel(jcfg.model), params, cfg, model
+
+
+def gumbel_noise(shape, seed: int = 7) -> np.ndarray:
+    return np.random.RandomState(seed).gumbel(size=shape).astype(np.float32)
+
+
+@contextlib.contextmanager
+def shared_gumbel(noise=None):
+    """Patch both packages' re-simulator samplers to add the same numpy
+    ``noise`` (None: no noise) to the logits; the port keeps its own
+    straight-through code, the JAX side is svpc_tpu/ops/gumbel.py with the
+    draw replaced."""
+    import jax
+    import jax.numpy as jnp
+    import svpc_tpu.model.svpc as jsvpc
+    import svpc_torch.model.svpc as psvpc
+    from svpc_torch.ops.gumbel import straight_through
+
+    def jax_st(key, logits, tau, axis=-1):
+        g = 0.0 if noise is None else jnp.asarray(noise)
+        y_soft = jax.nn.softmax((logits.astype(jnp.float32) + g) / tau,
+                                axis=axis).astype(logits.dtype)
+        index = jnp.argmax(y_soft, axis=axis)
+        y_hard = jax.nn.one_hot(index, logits.shape[axis],
+                                dtype=logits.dtype, axis=axis)
+        return y_hard + y_soft - jax.lax.stop_gradient(y_soft)
+
+    def port_st(logits, tau, generator=None):
+        g = (torch.zeros_like(logits) if noise is None
+             else torch.from_numpy(noise).to(logits.device))
+        return straight_through(logits, g, tau)
+
+    saved = jsvpc.gumbel_softmax_st, psvpc.gumbel_softmax_st
+    jsvpc.gumbel_softmax_st, psvpc.gumbel_softmax_st = jax_st, port_st
+    try:
+        yield
+    finally:
+        jsvpc.gumbel_softmax_st, psvpc.gumbel_softmax_st = saved
+
+
+def jax_compile(fn, *args):
+    """jax.jit(fn) compiled for arguments shaped like ``args``, with the XLA
+    backend at its lowest optimization level (a quarter less compile time
+    for these small programs; values agree with the default level to f32
+    rounding)."""
+    import jax
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})
