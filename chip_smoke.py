@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive svpc_torch's serving and training paths on one NVIDIA card and
-check them.
+"""Drive svpc_torch's serving, training and evaluation paths on one NVIDIA
+card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -13,9 +13,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
            the shapes the serving path gives it (f32 max abs error <= 1e-5,
            bf16 <= 2e-2), plus a sequence whose keys are all masked, a long
            key axis (Lq=Lk=300), the widest head the kernel takes (dh=128,
-           with a key-padding, a full and a cache mask) and a row on each
+           with a key-padding, a full and a cache mask), a row on each
            side of the threshold between the kernel's decode and tile
-           paths; the path each row took, the kernel's device time
+           paths, and the beam decode's cached steps at K=2 (N=192); the path each row took, the kernel's device time
            (CUDA-graph replay) and eager per-call time, the same for the
            plain version and for one library call
            (scaled_dot_product_attention, a yardstick the port never
@@ -33,8 +33,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
            first-position probabilities within 1e-4, token agreement.
   train    svpc_torch.train.loop.train on the card at full vivt width
            (random init from --seed) on a training fixture (96 train, 16
-           val videos): batch 16, 2 epochs x 6 steps, checkpoint_every_steps
-           3.  Every step's loss must be finite; the attention kernel must
+           val, 16 test videos): batch 16, 2 epochs x 6 steps,
+           checkpoint_every_steps 3, language eval on (checkpoint_best is
+           the epoch of the highest validation CIDEr).  Every step's loss must be finite; the attention kernel must
            launch through both paths during validation (the teacher-forced
            eval step and the greedy decode) and never inside a train step
            (whose attention is the differentiable plain version), and must
@@ -57,6 +58,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
            kernel's launches by path, a torch.profiler window of train
            steps (device-busy time, idle share, top kernels), the parameter
            count, and whether one step's gradients repeat bit for bit.
+  evaluate svpc_torch.cli.evaluate on the train phase's checkpoint_best:
+           greedy, then --use_beam --beam_size 2 --n_best 2
+           --ingredient_f1, on the val and test splits (both kernel paths
+           must launch); every metric file holds BLEU@1-4, METEOR with its
+           backend label, ROUGE-L, CIDEr, re1-re4 (and ingredient F1), and
+           every beam entry two ranked nbest hypotheses; valid.log.csv's
+           CIDEr column matches history.json.  One val batch beam-decoded
+           on the card and on the CPU: the tokens of real clips equal
+           (differing positions printed), rank-0 scores within 1e-4
+           relative; every attention form of the card's beam decode held
+           against attention_plain (f32 1e-5) and timed; greedy and beam
+           ms per batch (CUDA events) and the scorers' host seconds.
+  serve_beam  svpc_torch.cli.serve --use_beam --n_best 2 on the same
+           checkpoint, the 16 test videos as concurrent requests: every
+           caption carries two ranked nbest entries, /v1/stats names the
+           decoder, and the sentences equal cli.caption --use_beam's on
+           the same spec.
 
 The line before the last is {"kernels": [...]}, preceded by the card's
 name and power limit as nvidia-smi reports them; the last line is
@@ -99,6 +117,15 @@ SERVING_SHAPES = [
     ("decoder_cross_cached", 96, 1, 3, "ones", NUM_HEADS, 42),
     ("decoder_full_causal", 96, 22, 22, "causal", NUM_HEADS, 0),  # no cache
 ]
+# the beam decode's cached steps at K=2 on a served batch (N = 96 clip
+# slots x 2 beams): (name, N, Lq, Lk, mask form, heads, 0); its launches
+# per beam-decoded batch are BEAM_LAUNCHES (the encoders' four tile
+# launches are the greedy rows' shapes)
+BEAM_SHAPES = [
+    ("beam2_self_cached", 192, 1, 22, "cache", NUM_HEADS, 0),
+    ("beam2_cross_cached", 192, 1, 3, "ones", NUM_HEADS, 0),
+]
+BEAM_LAUNCHES = {"beam2_self_cached": 42, "beam2_cross_cached": 42}
 # off the serving path: several ring stages of keys, a sequence that sees
 # no key, and the widest head the kernel takes (dh=128: its f32 tile
 # blocks hold 64 query rows, its bf16 decode step spans two chunks of
@@ -245,7 +272,7 @@ def phase_kernels(seed: int):
     from svpc_torch.ops.attention import DECODE_MAX_LQ, LAUNCHES, _plan, \
         attention_plain, fused_attention
 
-    cases = SERVING_SHAPES + EXTRA_SHAPES + [
+    cases = SERVING_SHAPES + BEAM_SHAPES + EXTRA_SHAPES + [
         ("threshold_decode", 96, DECODE_MAX_LQ, 22, "causal", NUM_HEADS, 0),
         ("threshold_tile", 96, DECODE_MAX_LQ + 1, 22, "causal", NUM_HEADS,
          0)]
@@ -273,8 +300,9 @@ def phase_kernels(seed: int):
             row = {"shape": name, "dtype": str(dtype).split(".")[-1],
                    "N": n, "Lq": lq, "Lk": lk, "mask": form, "dh": dh,
                    "path": path,
-                   "launches_per_batch": per_batch, "max_abs_err": err,
-                   "tol": row_tol}
+                   "launches_per_batch": per_batch,
+                   "launches_per_beam_batch": BEAM_LAUNCHES.get(name, 0),
+                   "max_abs_err": err, "tol": row_tol}
             if not (math.isfinite(err) and err <= row_tol):
                 fail("kernels", f"fused_attention disagrees with "
                                 f"attention_plain: {row}")
@@ -302,11 +330,12 @@ def phase_kernels(seed: int):
 
 
 def kernel_summary(rows, phase_launches):
-    """One entry per kernel: device times per decoded serving batch (each
-    f32 serving shape weighted by its launches per batch), the worst f32
-    error over every row but the no-visible-key one, and the main paths'
-    launch counts (serve + train), in all, by the kernel's path and by
-    phase."""
+    """One entry per kernel: device times per greedily decoded serving
+    batch (each f32 serving shape weighted by its launches per batch), the
+    same per beam-decoded batch at K=2 (``beam2_batch``: the encoders'
+    rows and the beam rows), the worst f32 error over every row but the
+    no-visible-key one, and the main paths' launch counts (every phase),
+    in all, by the kernel's path and by phase."""
     total = lambda key: sum(l[key] for l in phase_launches.values())
     f32 = [r for r in rows
            if r["dtype"] == "float32" and r["mask"] != "none_visible"]
@@ -314,6 +343,11 @@ def kernel_summary(rows, phase_launches):
                                 for r in f32)
     bytes_ms = per_batch("bytes_bound_ms")
     bound = per_batch("bound_ms")
+    encoders = [r for r in f32 if r["shape"] in ("clip_encoder",
+                                                  "step_encoder")]
+    per_beam = lambda key: sum(
+        r[key] * (r["launches_per_beam_batch"] or r["launches_per_batch"])
+        for r in f32 if r["launches_per_beam_batch"] or r in encoders)
     return [{
         "name": "fused_attention", "route": "cuda",
         "source": "svpc_torch/csrc/fused_attention.cu",
@@ -328,6 +362,8 @@ def kernel_summary(rows, phase_launches):
         "bound_ms": bound,
         "bound_by": "bytes" if bytes_ms >= bound else "operations",
         "library_ms": per_batch("library_ms"),
+        "beam2_batch": {key: per_beam(key) for key in (
+            "ms", "plain_ms", "bound_ms", "library_ms")},
     }]
 
 
@@ -431,7 +467,7 @@ def phase_serve(seed: int, workdir: str):
 
 def phase_parity(service, fx, ckpt):
     from svpc_torch import tokenization as tok
-    from svpc_torch.cli.serve import load_serving_model
+    from svpc_torch.cli.common import load_reference_model
     from svpc_torch.decode.greedy import greedy_decode
     from svpc_torch.model.svpc import clip_view, to_tensors
 
@@ -439,7 +475,7 @@ def phase_parity(service, fx, ckpt):
     examples = [service.example_for(service.make_entry(v, fx["specs"][v]))
                 for v in vids]
     batch = service.build_batch(examples)
-    _, cpu_model = load_serving_model(service.cfg, ckpt)
+    _, cpu_model = load_reference_model(service.cfg, ckpt)
     cpu_model.eval()
 
     def first_position(model, dev):
@@ -665,83 +701,48 @@ def _parity_step(cfg, batch_np, seed):
     return res, _rel(res), gumbel.flips()
 
 
-def _validation_check(state, cfg, seed):
-    """One validation batch as the trainer builds it (the packed budget of
-    the whole split, batch 16), on the EMA weights:
+class _AttentionRecorder:
+    """Patches model/layers.py's ``fused_attention`` so that every call on
+    the card is counted by its form (``stage``, sequences, query and key
+    lengths, mask shape) and the inputs of each form's first call are
+    kept."""
 
-    * the teacher-forced eval forward on the card and on the CPU (the same
-      Gumbel noise): caption, entity and action losses within 1e-4
-      relative, prediction probabilities within 1e-4, Gumbel flips counted;
-    * every attention call of that eval forward and of the greedy decode on
-      the card, recorded: each distinct form (sequences, query and key
-      lengths, mask) held against attention_plain on the recorded inputs
-      (f32 1e-5; a row that sees no key, an empty packed slot, 2e-3 *
-      max|v|), timed beside plain, SDPA and the bound, with its calls in
-      this batch."""
+    def __init__(self):
+        self.calls, self.stage = {}, None
+
+    def __enter__(self):
+        import svpc_torch.model.layers as layers
+        from svpc_torch.ops.attention import fused_attention
+
+        def recording(q, k, v, mask, nh):
+            if q.is_cuda:
+                key = (self.stage, q.shape[0], q.shape[1], k.shape[1],
+                       tuple(mask.shape[1:]))
+                if key not in self.calls:
+                    self.calls[key] = {"inputs": (q, k, v, mask, nh),
+                                       "calls": 0}
+                self.calls[key]["calls"] += 1
+            return fused_attention(q, k, v, mask, nh)
+
+        layers.fused_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        import svpc_torch.model.layers as layers
+        from svpc_torch.ops.attention import fused_attention
+        layers.fused_attention = fused_attention
+
+
+def _form_rows(calls):
+    """Each recorded attention form held against attention_plain on its
+    recorded inputs (f32 1e-5; a row that sees no key, an empty packed
+    slot, 2e-3 * max|v|) and timed beside plain, SDPA and the bound, with
+    its calls in the recorded run.  Returns (rows, failures)."""
     import torch.nn.functional as F
-    import svpc_torch.model.layers as layers
-    import svpc_torch.train.loop as loop
-    from svpc_torch.data.pipeline import CaptionDataset
-    from svpc_torch.decode.greedy import greedy_decode
-    from svpc_torch.model import SVPCModel
-    from svpc_torch.model.svpc import to_tensors
     from svpc_torch.ops.attention import _plan, attention_plain, \
         fused_attention
-    from svpc_torch.train.step import step_generator
 
-    val_ds = CaptionDataset(cfg, "val", lazy_features=True)
-    bs = min(cfg.train.val_batch_size, len(val_ds))
-    batch_np, _ = next(val_ds.batches(
-        bs, builder=loop.eval_packing_builder(cfg, val_ds, bs)))
-    weights = state.eval_params()
-    models = {}
-    for dev in ("cuda", "cpu"):
-        models[dev] = SVPCModel(cfg.model).to(dev).eval()
-        models[dev].load_state_dict({n: t.to(dev) for n, t in
-                                     weights.items()}, strict=True)
-
-    calls, stage = {}, {"name": None}
-
-    def recording(q, k, v, mask, nh):
-        if q.is_cuda:
-            key = (stage["name"], q.shape[0], q.shape[1], k.shape[1],
-                   tuple(mask.shape[1:]))
-            if key not in calls:
-                calls[key] = {"inputs": (q, k, v, mask, nh), "calls": 0}
-            calls[key]["calls"] += 1
-        return fused_attention(q, k, v, mask, nh)
-
-    res, probs = {}, {}
-    layers.fused_attention = recording
-    try:
-        with _SharedGumbel(seed) as gumbel, torch.no_grad():
-            for dev, model in models.items():
-                stage["name"] = "eval_step"
-                out = model(to_tensors(batch_np, torch.device(dev)),
-                            deterministic=True,
-                            generator=step_generator(dev, 0))
-                res[dev] = {k: float(getattr(out, k)) for k in (
-                    "total_loss", "caption_loss", "entity_loss",
-                    "action_loss", "re_entity_loss", "re_action_loss")}
-                probs[dev] = out.prediction_scores.float().cpu()
-            stage["name"] = "greedy"
-            greedy_decode(models["cuda"],
-                          to_tensors(batch_np, torch.device("cuda")))
-    finally:
-        layers.fused_attention = fused_attention
-    rel = _rel(res)
-    parity = {"losses": res, "rel": rel, "gumbel_flips": gumbel.flips(),
-              "max_abs_diff_probs": (probs["cuda"] - probs["cpu"])
-              .abs().max().item(), "tol": 1e-4}
-    bad = [k for k in ("caption_loss", "entity_loss", "action_loss")
-           if rel[k] > 1e-4]
-    if not parity["gumbel_flips"]:
-        bad += [k for k in ("re_entity_loss", "re_action_loss")
-                if rel[k] > 1e-4]
-    if parity["max_abs_diff_probs"] > 1e-4:
-        bad.append("prediction_scores")
-
-    rows = []
+    rows, bad = [], []
     for (name, n, lq, lk, mshape), c in sorted(calls.items()):
         q, k, v, mask, nh = c["inputs"]
         dh = q.shape[-1] // nh
@@ -772,7 +773,65 @@ def _validation_check(state, cfg, seed):
         rows.append(row)
         if not (math.isfinite(err) and err <= 1e-5 and blind <= blind_tol):
             bad.append(f"kernel at {row}")
-    return parity, rows, bad
+    return rows, bad
+
+
+def _validation_check(state, cfg, seed):
+    """One validation batch as the trainer builds it (the packed budget of
+    the whole split, batch 16), on the EMA weights:
+
+    * the teacher-forced eval forward on the card and on the CPU (the same
+      Gumbel noise): caption, entity and action losses within 1e-4
+      relative, prediction probabilities within 1e-4, Gumbel flips counted;
+    * every attention call of that eval forward and of the greedy decode on
+      the card, recorded and held against attention_plain (``_form_rows``).
+    """
+    import svpc_torch.train.loop as loop
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.decode.greedy import greedy_decode
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.train.step import step_generator
+
+    val_ds = CaptionDataset(cfg, "val", lazy_features=True)
+    bs = min(cfg.train.val_batch_size, len(val_ds))
+    batch_np, _ = next(val_ds.batches(
+        bs, builder=loop.eval_packing_builder(cfg, val_ds, bs)))
+    weights = state.eval_params()
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = SVPCModel(cfg.model).to(dev).eval()
+        models[dev].load_state_dict({n: t.to(dev) for n, t in
+                                     weights.items()}, strict=True)
+
+    res, probs = {}, {}
+    with _AttentionRecorder() as rec, _SharedGumbel(seed) as gumbel, \
+            torch.no_grad():
+        for dev, model in models.items():
+            rec.stage = "eval_step"
+            out = model(to_tensors(batch_np, torch.device(dev)),
+                        deterministic=True,
+                        generator=step_generator(dev, 0))
+            res[dev] = {k: float(getattr(out, k)) for k in (
+                "total_loss", "caption_loss", "entity_loss",
+                "action_loss", "re_entity_loss", "re_action_loss")}
+            probs[dev] = out.prediction_scores.float().cpu()
+        rec.stage = "greedy"
+        greedy_decode(models["cuda"],
+                      to_tensors(batch_np, torch.device("cuda")))
+    rel = _rel(res)
+    parity = {"losses": res, "rel": rel, "gumbel_flips": gumbel.flips(),
+              "max_abs_diff_probs": (probs["cuda"] - probs["cpu"])
+              .abs().max().item(), "tol": 1e-4}
+    bad = [k for k in ("caption_loss", "entity_loss", "action_loss")
+           if rel[k] > 1e-4]
+    if not parity["gumbel_flips"]:
+        bad += [k for k in ("re_entity_loss", "re_action_loss")
+                if rel[k] > 1e-4]
+    if parity["max_abs_diff_probs"] > 1e-4:
+        bad.append("prediction_scores")
+    rows, kernel_bad = _form_rows(rec.calls)
+    return parity, rows, bad + kernel_bad
 
 
 def phase_train(seed: int, workdir: str):
@@ -875,6 +934,272 @@ def phase_train(seed: int, workdir: str):
     if bad:
         fail("train", f"card and CPU disagree on {bad}: {json.dumps(row)}")
     emit(dict(row, ok=True))
+    return launches, fx, cfg, os.path.join(workdir, "a")
+
+
+# ---------------------------------------------------------------------- #
+# evaluate
+# ---------------------------------------------------------------------- #
+
+METRIC_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR",
+               "METEOR_backend", "ROUGE_L", "CIDEr", "re1", "re2", "re3",
+               "re4")
+
+
+def _eval_argv(fx, checkpoint):
+    return ["--model_type", "vivt", "--checkpoint", checkpoint,
+            "--data_dir", fx["data_dir"],
+            "--word2idx_path", fx["word2idx_path"],
+            "--verb2idx_path", fx["verb2idx_path"],
+            "--video_feature_dir", fx["video_feature_dir"],
+            "--duration_file", fx["duration_file"]]
+
+
+def _events_ms(fn, reps=3) -> float:
+    """Mean ms of ``fn`` between CUDA events, after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _beam_parity(fx, checkpoint):
+    """One val batch as cli.evaluate builds it, beam-decoded (K=2,
+    n_best=2) on the card and on the CPU from the same eval weights: the
+    tokens of real clips (both ranks) and the rank-0 scores; every
+    attention form the card's beam decode makes, held against
+    attention_plain (``_form_rows``); greedy and beam ms per batch."""
+    import svpc_torch.train.loop as loop
+    from svpc_torch.cli.common import config_from_args, load_checkpoint_model
+    from svpc_torch.cli.evaluate import _parser
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.decode.beam import beam_decode
+    from svpc_torch.decode.greedy import greedy_decode
+    from svpc_torch.model.svpc import to_tensors
+
+    args = _parser().parse_args(_eval_argv(fx, checkpoint) + [
+        "--output_dir", "unused", "--split", "val"])
+    cfg, cpu_model = load_checkpoint_model(config_from_args(args), args)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    ds = CaptionDataset(cfg, "val", lazy_features=True)
+    dec = loop.make_eval_decoder(gpu_model, cfg, ds, beam_size=2, n_best=2)
+    batch_np, _ = next(ds.batches(dec["cfg"].train.val_batch_size,
+                                  builder=dec["builder"]))
+    batch = to_tensors(batch_np, torch.device("cuda"))
+    with _AttentionRecorder() as rec:
+        rec.stage = "beam2"
+        tok_gpu, sc_gpu = beam_decode(gpu_model, batch, beam_size=2,
+                                      n_best=2)
+    tok_cpu, sc_cpu = beam_decode(cpu_model, to_tensors(
+        batch_np, torch.device("cpu")), beam_size=2, n_best=2)
+    real = torch.from_numpy(batch_np["step_mask"]) > 0          # (B, S)
+    tg, tc = tok_gpu.cpu().permute(0, 2, 1, 3)[real], \
+        tok_cpu.permute(0, 2, 1, 3)[real]                    # (clips, n, T)
+    s0g, s0c = sc_gpu.cpu()[:, 0][real], sc_cpu[:, 0][real]
+    rows, bad = _form_rows(rec.calls)
+    out = {"clips": int(real.sum()),
+           "clip_slots": int(batch_np["clip_mask"].shape[0]),
+           "differing_token_positions": int((tg != tc).sum()),
+           "rank0_score_max_rel": ((s0g - s0c).abs()
+                                   / s0c.abs().clamp_min(1e-30)).max().item(),
+           "tol": 1e-4, "beam_kernel": rows,
+           "greedy_ms_per_batch": _events_ms(
+               lambda: greedy_decode(gpu_model, batch)),
+           "beam2_ms_per_batch": _events_ms(
+               lambda: beam_decode(gpu_model, batch, beam_size=2,
+                                   n_best=2))}
+    if out["differing_token_positions"]:
+        bad.append("beam tokens differ between the card and the CPU")
+    if not out["rank0_score_max_rel"] <= 1e-4:
+        bad.append("beam rank-0 scores differ between the card and the CPU")
+    return out, bad
+
+
+def phase_evaluate(fx, train_dir):
+    """cli.evaluate on the trainer's checkpoint_best: greedy, then beam
+    K=2 n_best=2 with ingredient F1, on the val and test splits (kernel
+    launches counted over these four runs); metric files complete;
+    valid.log.csv's CIDEr column filled; the beam parity of
+    ``_beam_parity``; the scorers' host seconds."""
+    from svpc_torch.cli.evaluate import main as evaluate_main
+    from svpc_torch.evaluation import evaluate_submission
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    checkpoint = os.path.join(train_dir, "checkpoint_best")
+    if not os.path.exists(checkpoint):
+        fail("evaluate", f"the trainer wrote no checkpoint_best (no epoch "
+                         f"scored a CIDEr above 0): {os.listdir(train_dir)}")
+    with open(os.path.join(train_dir, "history.json")) as f:
+        history = json.load(f)
+    with open(os.path.join(train_dir, "valid.log.csv")) as f:
+        header, *lines = f.read().split()
+    col = header.split(",").index("CIDEr")
+    logged = [float(ln.split(",")[col]) for ln in lines]
+    bad = []
+    if len(logged) != len(history) or any(
+            "CIDEr" not in h["lang"]
+            or abs(c - round(100 * h["lang"]["CIDEr"], 2)) > 0.006
+            for c, h in zip(logged, history)):
+        bad.append(f"valid.log.csv CIDEr {logged} against history "
+                   f"{[h['lang'].get('CIDEr') for h in history]}")
+
+    out_dir = os.path.join(train_dir, "eval")
+    runs = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    for split in ("val", "test"):
+        for name, extra in (("greedy", []),
+                            ("beam2_n2", ["--use_beam", "--beam_size", "2",
+                                          "--n_best", "2",
+                                          "--ingredient_f1"])):
+            runs[f"{name}_{split}"] = evaluate_main(
+                _eval_argv(fx, checkpoint) + [
+                    "--split", split, "--val_batch_size", "16",
+                    "--output_dir", os.path.join(out_dir, name)] + extra)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    if not (launches["fused_attention.tile"]
+            and launches["fused_attention.decode"]):
+        bad.append(f"a path of fused_attention did not launch in "
+                   f"cli.evaluate: {launches}")
+
+    metrics = {}
+    for key, run in runs.items():
+        m = run["metrics"]
+        want = METRIC_KEYS + (("ingredient_f1",) if "beam" in key else ())
+        missing = [k for k in want if k not in m]
+        numbers = [m[k] for k in want if k not in missing
+                   and k != "METEOR_backend" and k != "ingredient_f1"]
+        if missing or not all(math.isfinite(x) for x in numbers):
+            bad.append(f"{key}: metrics missing {missing} or not finite")
+        entries = [e for v in run["submission"]["results"].values()
+                   for e in v]
+        if "beam" in key and not all(
+                len(e["nbest"]) == 2
+                and e["nbest"][0]["score"] >= e["nbest"][1]["score"]
+                for e in entries):
+            bad.append(f"{key}: entries without two ranked nbest")
+        metrics[key] = {k: m.get(k) for k in want}
+        metrics[key]["videos"] = len(run["submission"]["results"])
+
+    # the scorers' host time on one submission (the trainer's per-epoch
+    # language eval scores the same way)
+    ref = os.path.join(fx["data_dir"], "yc2_split_val_anet_format_para.json")
+    t2 = time.perf_counter()
+    evaluate_submission(runs["greedy_val"]["submission"], [ref])
+    scorers_s = time.perf_counter() - t2
+
+    parity, parity_bad = _beam_parity(fx, checkpoint)
+    bad += parity_bad
+    row = {"phase": "evaluate", "phase_s": time.perf_counter() - t0,
+           "checkpoint_epoch": torch.load(checkpoint, map_location="cpu",
+                                          weights_only=True)["epoch"],
+           "history_cider": [h["lang"].get("CIDEr") for h in history],
+           "valid_log_cider": logged, "evaluate_s": eval_s,
+           "launches": launches, "metrics": metrics,
+           "scorers_host_s": scorers_s, "beam_parity": parity,
+           "card": card_line()}
+    if bad:
+        fail("evaluate", f"{bad}: {json.dumps(row, default=str)}")
+    emit(dict(row, ok=True))
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# serve_beam
+# ---------------------------------------------------------------------- #
+
+def phase_serve_beam(fx, train_dir):
+    """cli.serve --use_beam --n_best 2 on the trainer's checkpoint_best: a
+    burst of the test split's videos as concurrent requests; every caption
+    carries two ranked nbest entries, and the sentences equal cli.caption
+    --use_beam's on the same spec."""
+    from svpc_torch.cli import caption
+    from svpc_torch.cli.serve import build_service, start_server, stop_server
+    from svpc_torch.data.anet import SPLIT_FILES
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    checkpoint = os.path.join(train_dir, "checkpoint_best")
+    with open(os.path.join(fx["data_dir"], SPLIT_FILES["test"])) as f:
+        specs = {vid: {"timestamps": a["timestamps"],
+                       "ingredients": a["ingredients"]}
+                 for vid, a in json.load(f).items()}
+    spec_path = os.path.join(train_dir, "beam_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(specs, f)
+    argv = _eval_argv(fx, checkpoint)
+    service, _ = build_service(argv + ["--use_beam", "--beam_size", "2",
+                                       "--n_best", "2", "--batch_videos",
+                                       "8", "--max_clips", "12"])
+    server = start_server(service, "127.0.0.1", 0, max_wait_ms=100.0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    setup_s = time.perf_counter() - t0
+    results, errors = {}, []
+
+    def ask(vid):
+        try:
+            results[vid] = _post(base + "/v1/captions",
+                                 dict(specs[vid], video_id=vid))
+        except Exception as e:  # reported below, fails the phase
+            errors.append(f"{vid}: {e!r}")
+
+    try:
+        threads = [threading.Thread(target=ask, args=(v,)) for v in specs]
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t1
+        launches = dict(LAUNCHES)
+        stats = _get(base + "/v1/stats")
+    finally:
+        stop_server(server)
+    if errors or any(t.is_alive() for t in threads):
+        fail("serve_beam", f"requests failed: {errors}")
+    offline = caption.main(argv + [
+        "--input_json", spec_path, "--use_beam", "--beam_size", "2",
+        "--val_batch_size", "8",
+        "--output", os.path.join(train_dir, "beam_captions.json")])
+    bad = []
+    for vid, (code, resp) in results.items():
+        caps = resp.get("captions", [])
+        if code != 200 or len(caps) != len(specs[vid]["timestamps"]) or \
+                not all(len(c.get("nbest", [])) == 2
+                        and c["nbest"][0]["score"] >= c["nbest"][1]["score"]
+                        and c["sentence"] == c["nbest"][0]["sentence"]
+                        for c in caps):
+            bad.append(f"{vid}: bad response {code} {resp}")
+        elif [c["sentence"] for c in caps] != \
+                [c["sentence"] for c in offline[vid]]:
+            bad.append(f"{vid}: served {[c['sentence'] for c in caps]} != "
+                       f"cli.caption {[c['sentence'] for c in offline[vid]]}")
+    if stats.get("decoder") != "beam2" or stats.get("n_best") != 2:
+        bad.append(f"/v1/stats decoder: {stats}")
+    if not launches["fused_attention.decode"]:
+        bad.append(f"the decode path did not launch: {launches}")
+    n_clips = sum(len(s["timestamps"]) for s in specs.values())
+    row = {"phase": "serve_beam", "setup_s": setup_s,
+           "requests": len(results), "clips": n_clips, "wall_s": wall,
+           "clips_per_s": n_clips / wall, "batches": stats["batches"],
+           "mean_batch_videos": stats["mean_batch_videos"],
+           "latency_ms": stats["latency_ms"], "batch_ms": stats["batch_ms"],
+           "decoder": stats.get("decoder"), "launches": launches,
+           "card": card_line()}
+    if bad:
+        fail("serve_beam", f"{bad[:5]}: {json.dumps(row)}")
+    emit(dict(row, ok=True))
     return launches
 
 
@@ -900,10 +1225,15 @@ def main(argv=None) -> int:
             as workdir:
         service, fx, ckpt, launches = phase_serve(args.seed, workdir)
         phase_parity(service, fx, ckpt)
-        train_launches = phase_train(args.seed, workdir)
+        train_launches, train_fx, _, train_dir = phase_train(args.seed,
+                                                              workdir)
+        eval_launches = phase_evaluate(train_fx, train_dir)
+        beam_launches = phase_serve_beam(train_fx, train_dir)
     print(card_line(), flush=True)
     emit({"kernels": kernel_summary(rows, {"serve": launches,
-                                           "train": train_launches})})
+                                           "train": train_launches,
+                                           "evaluate": eval_launches,
+                                           "serve_beam": beam_launches})})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,15 @@
-"""Shared CLI argument handling, from svpc_tpu/cli/common.py: the flags
-every CLI takes (data paths, geometry, layout, device) and the training
-flags of ``cli.train``, for what the port's trainer supports."""
+"""Shared CLI argument handling and checkpoint loading, from
+svpc_tpu/cli/common.py: the flags every CLI takes (data paths, geometry,
+layout, device), the training flags of ``cli.train``, for what the port's
+trainer supports, and the model loader of the inference CLIs
+(``evaluate``, ``caption``, ``serve``)."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 
 from svpc_torch.config import (MODEL_TYPE_TO_MODE, Config, DataConfig,
                                ModelConfig, TrainConfig)
@@ -147,3 +151,83 @@ def train_config_from_args(args) -> Config:
         debug=args.debug)
     cfg.model.validate()
     return cfg
+
+
+def adopt_checkpoint_sidecar(cfg: Config, checkpoint_path: str) -> Config:
+    """Adopt what a trainer checkpoint's weights fix from its
+    ``<checkpoint>.cfg.json`` sidecar: the whole model configuration (the
+    inference CLIs take no architecture flags), keeping the caller's clip
+    budget ``max_n_sen``.  The caller's model type and vocabularies must
+    be the checkpoint's.  No sidecar: ``cfg`` as it is."""
+    sidecar = os.path.abspath(checkpoint_path) + ".cfg.json"
+    if not os.path.exists(sidecar):
+        return cfg
+    saved = Config.from_json(sidecar)
+    for field in ("model_mode", "vocab_size", "action_vocab_size"):
+        want, got = getattr(saved.model, field), getattr(cfg.model, field)
+        if want != got:
+            raise SystemExit(f"{checkpoint_path} was trained with "
+                             f"{field}={want}, the flags give {got}")
+    return Config(
+        model=dataclasses.replace(saved.model, max_n_sen=cfg.model.max_n_sen),
+        data=cfg.data, train=cfg.train)
+
+
+def load_reference_model(cfg: Config, checkpoint: str):
+    """(cfg, model) from a reference-format ``.chkpt``: the checkpoint's
+    geometry overrides the architecture fields of ``cfg``; the serving
+    budgets (steps, entities, OOV slots) stay the caller's."""
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.from_jax import load_reference_checkpoint
+    m = cfg.model
+    mcfg, state = load_reference_checkpoint(
+        checkpoint, max_n_sen=m.max_n_sen, max_entities=m.max_entities,
+        max_oov=m.max_oov, max_ingr_words=m.max_ingr_words)
+    model = SVPCModel(mcfg)
+    model.load_state_dict(state, strict=True)
+    return Config(model=mcfg, data=cfg.data, train=cfg.train), model
+
+
+def load_checkpoint_model(cfg: Config, args):
+    """(cfg, model on the CPU, in eval mode) for the inference CLIs.
+
+    ``--torch_checkpoint``: a reference-format ``.chkpt``.  Otherwise a
+    checkpoint of the port's trainer (train/state.py): its sidecar's
+    configuration, and the EMA weights as eval weights.  svpc_tpu's orbax
+    checkpoints (directories) need JAX and are refused."""
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.train.state import load_eval_weights
+
+    path = args.checkpoint
+    if not os.path.exists(path) and not os.path.exists(path + ".swp"):
+        raise SystemExit(f"checkpoint not found: {path}")
+    if getattr(args, "torch_checkpoint", False):
+        cfg, model = load_reference_model(cfg, path)
+        return cfg, model.eval()
+    if os.path.isdir(path):
+        raise SystemExit(
+            f"{path} is an orbax checkpoint directory: svpc_torch reads "
+            "its own trainer's checkpoints and reference-format .chkpt "
+            "files (pass --torch_checkpoint); orbax checkpoints need JAX, "
+            "convert them with svpc_tpu's cli.export_checkpoint")
+    cfg = adopt_checkpoint_sidecar(cfg, path)
+    model = SVPCModel(cfg.model)
+    model.load_state_dict(load_eval_weights(path), strict=True)
+    return cfg, model.eval()
+
+
+def load_eval_model(cfg: Config, args, make_ds):
+    """(cfg, model, dataset) for the offline tools: the checkpoint as
+    ``load_checkpoint_model`` loads it, then ``make_ds(cfg)`` on the
+    adopted configuration; ``val_batch_size`` is capped at the dataset's
+    size."""
+    cfg, model = load_checkpoint_model(cfg, args)
+    ds = make_ds(cfg)
+    if len(ds) == 0:
+        missing = getattr(ds, "missing", [])
+        detail = (f" ({len(missing)} video(s) dropped for missing feature "
+                  f"files, e.g. {', '.join(missing[:5])})" if missing else "")
+        raise SystemExit(f"dataset is empty{detail}")
+    if len(ds) < cfg.train.val_batch_size:
+        cfg = cfg.replace_train(val_batch_size=len(ds))
+    return cfg, model, ds

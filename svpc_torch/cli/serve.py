@@ -1,13 +1,16 @@
 """Caption serving daemon: HTTP front-end over the dynamic batcher.
 
-The port of svpc_tpu/cli/serve.py.  It loads a reference-format PyTorch
-``.chkpt`` once (``--torch_checkpoint``; the JAX package's orbax
-checkpoints need JAX and are not read here), warms the decoder at one
-fixed geometry on the card, and answers concurrent single-video requests
-with dynamic batching (svpc_torch/serving.py).
+The port of svpc_tpu/cli/serve.py.  It loads a checkpoint of the port's
+trainer (``cli.train``'s ``checkpoint_best``: its sidecar's configuration
+and EMA weights) or, with ``--torch_checkpoint``, a reference-format
+PyTorch ``.chkpt`` (the JAX package's orbax checkpoints need JAX and are
+refused), warms the decoder at one fixed geometry on the card, and answers
+concurrent single-video requests with dynamic batching
+(svpc_torch/serving.py).  ``--use_beam --beam_size K`` decodes by beam
+search; ``--n_best N`` adds the N ranked hypotheses to every caption.
 
     python -m svpc_torch.cli.serve --model_type vivt \
-        --torch_checkpoint --checkpoint model.chkpt \
+        --checkpoint run/checkpoint_best \
         --word2idx_path word2idx.json --verb2idx_path verb2idx.json \
         --video_feature_dir features --duration_file durations.csv \
         --port 8700 --batch_videos 8 --max_wait_ms 25
@@ -20,9 +23,12 @@ API (JSON over HTTP):
    -> {"video_id": "...",
        "captions": [{"timestamp": [s, e], "sentence": "..."} ...]}
       (features are read from --video_feature_dir/<vid>_{resnet,bn}.npy;
-       the duration CSV must carry a row per video)
+       the duration CSV must carry a row per video; with --use_beam
+       --n_best N each caption also carries "nbest": ranked
+       [{"sentence", "score"}, ...])
   GET /healthz     -> {"status": "ok", ...model/serving geometry...}
-  GET /v1/stats    -> request/batch counters + latency quantiles
+  GET /v1/stats    -> request/batch counters + latency quantiles, and the
+                      decoder ("greedy" or "beam{K}") with its n_best
 
 Errors: 400 (bad spec / unknown video), 411 (chunked body), 502 (device
 batch failed), 503 (decode timeout), 500.
@@ -38,27 +44,12 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from svpc_torch.cli.common import add_common_args, config_from_args
-from svpc_torch.config import Config
+from svpc_torch.cli.common import (add_common_args, config_from_args,
+                                   load_checkpoint_model)
 from svpc_torch.serving import (CaptionService, DecodeFailure, DecodeTimeout,
                                 DynamicBatcher, ServingError)
 
 logger = logging.getLogger(__name__)
-
-
-def load_serving_model(cfg: Config, checkpoint: str):
-    """(cfg, model) from a reference-format ``.chkpt``: the checkpoint's
-    geometry overrides the architecture fields of ``cfg``; the serving
-    budgets (steps, entities, OOV slots) stay the caller's."""
-    from svpc_torch.model import SVPCModel
-    from svpc_torch.model.from_jax import load_reference_checkpoint
-    m = cfg.model
-    mcfg, state = load_reference_checkpoint(
-        checkpoint, max_n_sen=m.max_n_sen, max_entities=m.max_entities,
-        max_oov=m.max_oov, max_ingr_words=m.max_ingr_words)
-    model = SVPCModel(mcfg)
-    model.load_state_dict(state, strict=True)
-    return Config(model=mcfg, data=cfg.data, train=cfg.train), model
 
 
 class CaptionHandler(BaseHTTPRequestHandler):
@@ -111,7 +102,7 @@ class CaptionHandler(BaseHTTPRequestHandler):
             self._reply(200, {
                 "status": "ok",
                 "model_mode": svc.cfg.model.model_mode,
-                "decoder": "greedy",
+                "decoder": svc.decoder,
                 "n_best": svc.n_best,
                 "batch_videos": svc.batch_videos,
                 "max_clips": svc.max_clips,
@@ -119,7 +110,9 @@ class CaptionHandler(BaseHTTPRequestHandler):
                 "device": str(svc.device),
             })
         elif self.path == "/v1/stats":
-            self._reply(200, srv.batcher.stats.snapshot())
+            self._reply(200, dict(srv.batcher.stats.snapshot(),
+                                  decoder=srv.service.decoder,
+                                  n_best=srv.service.n_best))
         else:
             self._reply(404, {"error": f"unknown path {self.path}"})
 
@@ -241,10 +234,11 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     add_common_args(p)
-    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--checkpoint", required=True,
+                   help="a checkpoint of svpc_torch.cli.train (e.g. "
+                        "<workdir>/checkpoint_best)")
     p.add_argument("--torch_checkpoint", action="store_true",
-                   help="--checkpoint is a reference PyTorch .chkpt file "
-                        "(required: orbax checkpoints need JAX)")
+                   help="--checkpoint is a reference PyTorch .chkpt file")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8700)
     p.add_argument("--batch_videos", type=int, default=8,
@@ -260,6 +254,12 @@ def _parser() -> argparse.ArgumentParser:
                         "worst case (e.g. 16,32): light batches ride a "
                         "smaller shape")
     p.add_argument("--request_timeout", type=float, default=60.0)
+    p.add_argument("--use_beam", action="store_true")
+    p.add_argument("--beam_size", type=int, default=2)
+    p.add_argument("--n_best", type=int, default=1,
+                   help="with --use_beam: each caption also carries the "
+                        "top-N ranked hypotheses with scores ('nbest'), "
+                        "as cli.evaluate's --n_best submission does")
     return p
 
 
@@ -268,15 +268,19 @@ def build_service(argv=None):
     CaptionService -> (service, args)."""
     p = _parser()
     args = p.parse_args(argv)
-    if not args.torch_checkpoint:
-        p.error("svpc_torch serves reference-format .chkpt files only: pass "
-                "--torch_checkpoint (orbax checkpoints need JAX; convert "
-                "them with svpc_tpu's cli.export_checkpoint)")
-    cfg, model = load_serving_model(config_from_args(args), args.checkpoint)
+    if args.n_best > 1 and not args.use_beam:
+        p.error("--n_best > 1 requires --use_beam (greedy decode yields "
+                "a single hypothesis)")
+    if args.use_beam and args.n_best > args.beam_size:
+        p.error(f"--n_best {args.n_best} cannot exceed "
+                f"--beam_size {args.beam_size}")
+    cfg, model = load_checkpoint_model(config_from_args(args), args)
     buckets = ([int(b) for b in args.clip_buckets.split(",")]
                if args.clip_buckets else None)
     service = CaptionService(cfg, model, batch_videos=args.batch_videos,
                              max_clips=args.max_clips or None,
+                             beam_size=args.beam_size if args.use_beam else 0,
+                             n_best=args.n_best if args.use_beam else 1,
                              clip_buckets=buckets, device=args.device)
     return service, args
 

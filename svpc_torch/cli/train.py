@@ -5,10 +5,13 @@
       --word2idx_path JSON --verb2idx_path JSON --workdir results/run1
 
 Runs on the card unless ``--device cpu``.  Writes ``train.log.csv``,
-``valid.log.csv``, ``greedy_pred_val_epoch{e}.json``, ``checkpoint_last``
-(+ ``.progress.json``), ``checkpoint_best`` and ``history.json`` under
-``--workdir``; ``--resume_from <workdir>/checkpoint_last`` continues a run,
-inside its epoch when the checkpoint was taken mid-epoch.
+``valid.log.csv`` (with the language metrics),
+``greedy_pred_val_epoch{e}.json``, ``checkpoint_last`` (+
+``.progress.json``), ``checkpoint_best`` (the epoch of the highest
+validation CIDEr; of the lowest validation loss under
+``--no_language_eval``) and ``history.json`` under ``--workdir``;
+``--resume_from <workdir>/checkpoint_last`` continues a run, inside its
+epoch when the checkpoint was taken mid-epoch.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ def main(argv=None):
     add_train_args(p)
     p.add_argument("--workdir", required=True)
     p.add_argument("--max_steps_per_epoch", type=int, default=None)
+    p.add_argument("--no_language_eval", action="store_true",
+                   help="skip the greedy decode and language metrics of "
+                        "each epoch; select checkpoint_best by validation "
+                        "loss")
     p.add_argument("--debug_nans", action="store_true",
                    help="autograd anomaly detection (the reference's "
                         "always-on check, off by default for speed)")
@@ -42,6 +49,7 @@ def main(argv=None):
         args.max_steps_per_epoch = 1
     return train(cfg, args.workdir,
                  max_steps_per_epoch=args.max_steps_per_epoch,
+                 eval_language=not args.no_language_eval,
                  debug_nans=args.debug_nans, resume_from=args.resume_from,
                  device=args.device)
 

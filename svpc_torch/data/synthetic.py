@@ -1,8 +1,9 @@
 """Synthetic data made from a seed: fixed-shape numpy batches (tests,
 kernel checks), an on-disk serving fixture (vocab, verb vocab, duration
 CSV and per-video feature files) that the serving path reads exactly like
-real YC2 data, and a training fixture that adds annotated train / val
-split files.  Nothing here reads outside data."""
+real YC2 data, and a training fixture that adds annotated train / val /
+test split files and the val / test paragraph references the language
+scorers read.  Nothing here reads outside data."""
 
 from __future__ import annotations
 
@@ -190,9 +191,14 @@ def write_training_fixture(root: str, cfg: Config, n_train: int,
                            n_val: int, seed: int = 0, min_clips: int = 3,
                            max_clips: int = 12) -> dict:
     """Write a training fixture under ``root``: the serving fixture's
-    files for ``n_train + n_val`` videos, plus annotated split files under
-    the names data/anet.py loads (``bosselut_yc2_train_anet_format.json``
-    and ``bosselut_split_yc2_val_anet_format.json``), so ``root`` is the
+    files for ``n_train + 2 * n_val`` videos, plus annotated split files
+    under the names data/anet.py loads
+    (``bosselut_yc2_train_anet_format.json``,
+    ``bosselut_split_yc2_{val,test}_anet_format.json``; the test split has
+    ``n_val`` videos, after the train and val ones, so that those do not
+    depend on it) and the paragraph references of the val and test splits
+    (``yc2_split_{val,test}_anet_format_para.json``, ``{vid: paragraph}``
+    with each clip's sentence ending in a period), so ``root`` is the
     ``data_dir``.  Each clip gets a sentence of fixture-vocabulary words,
     the video's own ingredient words (out-of-vocabulary ones included, so
     the copy path has targets) and the odd unknown word; each step gets an
@@ -201,16 +207,16 @@ def write_training_fixture(root: str, cfg: Config, n_train: int,
     out-of-vocabulary ingredient words (the annotated splits' budget).
 
     Returns the serving fixture's dict plus ``data_dir``."""
-    from svpc_torch.data.anet import SPLIT_FILES
+    from svpc_torch.data.anet import PARA_REFERENCE_FILES, SPLIT_FILES
 
     m = cfg.model
-    fx = write_serving_fixture(root, cfg, n_videos=n_train + n_val,
+    fx = write_serving_fixture(root, cfg, n_videos=n_train + 2 * n_val,
                                min_clips=min_clips, max_clips=max_clips,
                                seed=seed)
     rng = np.random.RandomState(seed + 1)
     n_special = len(tok.SPECIAL_TOKENS)
     vocab_word = lambda: f"word{n_special + rng.randint(m.vocab_size - n_special)}"
-    splits = {"train": {}, "val": {}}
+    splits = {"train": {}, "val": {}, "test": {}}
     for i, (name, spec) in enumerate(fx["specs"].items()):
         oov, ingredients = set(), []
         for ingr in spec["ingredients"]:
@@ -238,10 +244,16 @@ def write_training_fixture(root: str, cfg: Config, n_train: int,
             verbs = rng.choice(m.action_vocab_size,
                                size=rng.randint(1, 3), replace=False)
             action.append({f"verb{v}": int(v) for v in verbs})
-        splits["train" if i < n_train else "val"][name] = dict(
+        split = ("train" if i < n_train else
+                 "val" if i < n_train + n_val else "test")
+        splits[split][name] = dict(
             spec, ingredients=ingredients, sentences=sentences,
             alignment=alignment, action=action)
     for split, entries in splits.items():
         with open(os.path.join(root, SPLIT_FILES[split]), "w") as f:
             json.dump(entries, f)
+    for split, fn in PARA_REFERENCE_FILES.items():
+        with open(os.path.join(root, fn), "w") as f:
+            json.dump({name: " ".join(f"{s}." for s in e["sentences"])
+                       for name, e in splits[split].items()}, f)
     return dict(fx, data_dir=root)

@@ -42,6 +42,24 @@ def batch_to_sentences(
     return out
 
 
+def nbest_entries(tokens: np.ndarray, scores: np.ndarray,
+                  metas: Sequence[dict], vocab: Vocabulary):
+    """Ranked hypotheses (B, n, S, T) with their scores (B, n, S) ->
+    (the rank-0 sentences as ``batch_to_sentences`` gives them, and per
+    example and real step ``{"nbest": [{"sentence", "score"}, ...]}``
+    best-first): the one construction of serving's payloads and of the
+    offline n-best submission."""
+    n = tokens.shape[1]
+    per_rank = [batch_to_sentences(tokens[:, r], metas, vocab)
+                for r in range(n)]
+    nbest = [[{"nbest": [{"sentence": per_rank[r][b][s],
+                          "score": float(scores[b, r, s])}
+                         for r in range(n)]}
+              for s in range(meta["n_steps"])]
+             for b, meta in enumerate(metas)]
+    return per_rank[0], nbest
+
+
 def build_submission(results: Dict[str, List[dict]]) -> dict:
     """anet-format submission JSON (reference translate.py:47-49, 92)."""
     return {
@@ -53,14 +71,19 @@ def build_submission(results: Dict[str, List[dict]]) -> dict:
 
 
 def collect_results(sentences: List[List[str]], metas: Sequence[dict],
-                    results: Optional[Dict[str, List[dict]]] = None):
-    """Accumulate one batch's sentences into a submission results dict."""
+                    results: Optional[Dict[str, List[dict]]] = None,
+                    extras: Optional[List[List[dict]]] = None):
+    """Accumulate one batch's sentences into a submission results dict.
+    ``extras`` (the [example][step] structure of ``sentences``) merges
+    more fields into each entry, e.g. the ``nbest`` hypothesis lists."""
     if results is None:
         results = defaultdict(list)
-    for sents, meta in zip(sentences, metas):
+    for b, (sents, meta) in enumerate(zip(sentences, metas)):
         for s, sent in enumerate(sents):
-            results[meta["name"]].append({
-                "sentence": sent,
-                "timestamp": meta["timestamps"][s],
-                "gt_sentence": meta["gt_sentences"][s]})
+            entry = {"sentence": sent,
+                     "timestamp": meta["timestamps"][s],
+                     "gt_sentence": meta["gt_sentences"][s]}
+            if extras is not None:
+                entry.update(extras[b][s])
+            results[meta["name"]].append(entry)
     return results

@@ -55,9 +55,10 @@ def to_tensors(batch: Dict[str, np.ndarray],
 
 def scatter_clips(batch, rows: torch.Tensor,
                   grid_shape: Tuple[int, int]) -> torch.Tensor:
-    """Packed per-clip rows (N, D) -> the (B, S, D) step grid, zero at
+    """Packed per-clip rows (N, ...) -> the (B, S, ...) step grid, zero at
     padded steps (padding clips are masked out before the scatter)."""
-    rows = rows * batch["clip_mask"][:, None].to(rows.dtype)
+    cmask = batch["clip_mask"].reshape((-1,) + (1,) * (rows.dim() - 1))
+    rows = rows * cmask.to(rows.dtype)
     grid = rows.new_zeros(grid_shape + rows.shape[1:])
     return grid.index_put((batch["clip_video"], batch["clip_step"]), rows,
                           accumulate=True)

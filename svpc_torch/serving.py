@@ -1,7 +1,8 @@
 """Online serving: a fixed-geometry decode service + dynamic request batching.
 
-The port of svpc_tpu/serving.py for greedy decoding of videos whose
-features are on disk.  ``CaptionService`` pins one serving geometry —
+The port of svpc_tpu/serving.py for videos whose features are on disk,
+decoded greedily or by beam search (``beam_size > 1``, with ``n_best``
+ranked hypotheses per clip).  ``CaptionService`` pins one serving geometry —
 ``batch_videos`` video slots x ``max_clips`` steps x ``max_v_len`` feature
 rows, the packed clip budget rounded to the pack multiple — so every
 request batch has the same shapes (and the same kernel launches).
@@ -10,8 +11,8 @@ to ``batch_videos`` videos or ``max_wait_ms``).  Host work (tokenization,
 feature fill) runs in the submitting thread; the one batcher thread only
 assembles batches and runs the model.
 
-Beam search, ``n_best``, multi-card ``mesh`` serving and feature uploads
-(``upload_dir``) are later slices and raise ``NotImplementedError`` here.
+Multi-card ``mesh`` serving and feature uploads (``upload_dir``) are
+later slices and raise ``NotImplementedError`` here.
 The HTTP front-end lives in cli/serve.py.
 """
 
@@ -35,8 +36,9 @@ from svpc_torch.data.packing import round_up as _round_up
 from svpc_torch.data.packing import shard_clip_counts
 from svpc_torch.data.pipeline import (CaptionDataset, Example, batch_examples,
                                       inference_entries, pad_batch_to)
+from svpc_torch.decode.beam import beam_decode
 from svpc_torch.decode.greedy import greedy_decode
-from svpc_torch.decode.postprocess import batch_to_sentences
+from svpc_torch.decode.postprocess import batch_to_sentences, nbest_entries
 from svpc_torch.model.svpc import to_tensors
 from svpc_torch.precision import check_compute_dtype, resolve_device
 
@@ -118,10 +120,15 @@ class CaptionService:
                  upload_dir: Optional[str] = None,
                  warmup: bool = True,
                  device=None):
-        if beam_size and beam_size > 1:
-            raise _not_ported("beam search serving")
-        if n_best != 1:
-            raise _not_ported("n_best serving")
+        if n_best < 1:
+            raise ValueError(f"n_best must be >= 1, got {n_best}")
+        if n_best > 1 and not (beam_size and beam_size > 1):
+            raise ValueError(
+                f"n_best={n_best} requires beam search (beam_size > 1); "
+                "greedy decoding yields a single hypothesis")
+        if n_best > max(beam_size, 1):
+            raise ValueError(
+                f"n_best={n_best} cannot exceed beam_size={beam_size}")
         if mesh is not None:
             raise _not_ported("multi-card (mesh) serving")
         if upload_dir:
@@ -135,7 +142,8 @@ class CaptionService:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_videos = batch_videos
-        self.n_best = 1
+        self.beam_size = beam_size if beam_size and beam_size > 1 else 0
+        self.n_best = n_best
         self.ds = CaptionDataset(cfg, "infer", num_steps=max_clips,
                                  entries=[], lazy_features=True,
                                  feature_store=feature_store)
@@ -263,22 +271,42 @@ class CaptionService:
     # device batch decode
     # ---------------------------------------------------------------- #
 
-    def _decode_batch(self, batch) -> np.ndarray:
-        """Greedy-decode one numpy batch -> host (B, S, T) token grid."""
+    @property
+    def decoder(self) -> str:
+        """"greedy" or "beam{K}"."""
+        return f"beam{self.beam_size}" if self.beam_size else "greedy"
+
+    def _decode_batch(self, batch):
+        """Decode one numpy batch -> host arrays: one (B, S, T) token grid,
+        or the ``(tokens (B, n, S, T), scores (B, n, S))`` pair under
+        n_best > 1."""
         with self._lock:
-            tokens = greedy_decode(self.model, to_tensors(batch, self.device))
-            return tokens.cpu().numpy()
+            b = to_tensors(batch, self.device)
+            if not self.beam_size:
+                return greedy_decode(self.model, b).cpu().numpy()
+            out = beam_decode(self.model, b, beam_size=self.beam_size,
+                              n_best=self.n_best)
+            if self.n_best == 1:
+                return out.cpu().numpy()
+            return tuple(x.cpu().numpy() for x in out)
 
     def decode_payloads(self, examples: Sequence[Example]
                         ) -> List[List[dict]]:
         """Decode up to ``batch_videos`` examples -> per-example per-clip
-        payload dicts ``{"sentence": str}``."""
+        payload dicts: ``{"sentence": str}``, plus ``"nbest":
+        [{"sentence", "score"}, ...]`` ranked best-first under n_best > 1,
+        as the offline ``run_nbest_eval`` (train/loop.py) builds them."""
         if len(examples) > self.batch_videos:
             raise ValueError(
                 f"{len(examples)} examples > batch_videos={self.batch_videos}")
         out = self._decode_batch(self.build_batch(examples))
-        sentences = batch_to_sentences(out, [e.meta for e in examples],
-                                       self.ds.vocab)
+        metas = [e.meta for e in examples]
+        if self.n_best > 1:
+            sentences, nbest = nbest_entries(*out, metas, self.ds.vocab)
+            return [[dict({"sentence": s}, **extra)
+                     for s, extra in zip(sents, extras)]
+                    for sents, extras in zip(sentences, nbest)]
+        sentences = batch_to_sentences(out, metas, self.ds.vocab)
         return [[{"sentence": s} for s in sents] for sents in sentences]
 
     def caption(self, specs: Dict[str, Dict]) -> Dict[str, List[dict]]:

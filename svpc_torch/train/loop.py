@@ -2,13 +2,18 @@
 svpc_tpu/train/loop.py.
 
 Mirrors the reference driver (src/train.py:334-460): per-epoch training,
-teacher-forced validation on the EMA weights, a greedy decode of the
-validation split, checkpointing with early stopping.  Without the language
-scorers (a later slice) the selection metric is the validation loss, as
-svpc_tpu does under ``--no_language_eval``.  Mesh parallelism (dp, tp, pp,
-ZeRO-1), multi-host runs, remat and ``steps_per_dispatch`` are later
-slices: a config that asks for them (a sidecar written by svpc_tpu) raises.
-The profiler, TensorBoard and language eval are later slices too.
+teacher-forced validation on the EMA weights, then language eval: a greedy
+decode of the validation split scored by ``evaluation.evaluate_submission``
+(METEOR, BLEU@4, CIDEr, re4 in ``valid.log.csv``).  The best checkpoint is
+the one with the highest CIDEr (a CIDEr of 0 never wins), with early
+stopping on it; without language eval (``eval_language=False``, or no
+paragraph reference file) it is the one with the lowest validation loss.
+The offline decoders of ``cli.evaluate`` / ``cli.caption``
+(``make_eval_decoder``, ``run_greedy_eval``, ``run_nbest_eval``) live here
+too, as in svpc_tpu.  Mesh parallelism (dp, tp, pp, ZeRO-1), multi-host
+runs, remat and ``steps_per_dispatch`` are later slices: a config that asks
+for them (a sidecar written by svpc_tpu) raises.  The profiler and
+TensorBoard are later slices too.
 
 On the card the train step's attention runs the differentiable plain
 version; the hand-written attention kernel runs in validation (the
@@ -30,12 +35,16 @@ import numpy as np
 import torch
 
 from svpc_torch.config import Config
+from svpc_torch.data.anet import para_reference_files
 from svpc_torch.data.packing import fixed_clip_budget, pack_examples
 from svpc_torch.data.pipeline import CaptionDataset
 from svpc_torch.data.prefetch import prefetch_to_device
+from svpc_torch.decode.beam import beam_decode
 from svpc_torch.decode.greedy import greedy_decode
 from svpc_torch.decode.postprocess import (batch_to_sentences,
-                                           build_submission, collect_results)
+                                           build_submission, collect_results,
+                                           nbest_entries)
+from svpc_torch.evaluation import evaluate_submission
 from svpc_torch.model import SVPCModel
 from svpc_torch.model.svpc import to_tensors
 from svpc_torch.precision import resolve_device
@@ -120,20 +129,76 @@ def eval_packing_builder(cfg: Config, dataset, batch_size: int):
         v_len=cfg.model.max_v_len)
 
 
-def run_greedy_eval(model, dataset: CaptionDataset, cfg: Config, device,
-                    max_batches: Optional[int] = None) -> dict:
-    """Greedy-decode a dataset (decode/greedy.py, the KV-cached path) into
-    an anet-format submission."""
-    bs = cfg.train.val_batch_size
-    builder = eval_packing_builder(cfg, dataset, bs)
-    results = None
-    for j, (batch, metas) in enumerate(dataset.batches(bs, builder=builder)):
+def eval_batch_size(cfg: Config, dataset_len: int) -> int:
+    """The decode batch: no bigger than the dataset (a 4-video split would
+    otherwise pad to the default 50)."""
+    return max(1, min(cfg.train.val_batch_size, dataset_len))
+
+
+def make_eval_decoder(model, cfg: Config, dataset: CaptionDataset,
+                      beam_size: int = 0, n_best: int = 1) -> dict:
+    """The decode function and the fixed packed shape of a dataset's eval
+    batches, built once: per-epoch eval reuses them.  ``beam_size > 1``
+    decodes by beam search; ``n_best > 1`` (beam only) makes it return
+    ``(tokens (B, n, S, T), scores (B, n, S))`` ranked best-first."""
+    bs = eval_batch_size(cfg, len(dataset))
+    cfg = cfg.replace_train(val_batch_size=bs)
+    if beam_size and beam_size > 1:
+        decode = lambda b: beam_decode(model, b, beam_size=beam_size,
+                                       n_best=n_best)
+    else:
+        decode = lambda b: greedy_decode(model, b)
+    return dict(cfg=cfg, decode=decode,
+                builder=eval_packing_builder(cfg, dataset, bs),
+                device=next(model.parameters()).device)
+
+
+def _decode_batches(dataset: CaptionDataset, decoder: dict,
+                    max_batches: Optional[int] = None):
+    """Yield ``(decoder output, metas)`` per eval batch in the dataset's
+    order: the loop the greedy and the n-best paths share."""
+    bs = decoder["cfg"].train.val_batch_size
+    for j, (batch, metas) in enumerate(dataset.batches(
+            bs, builder=decoder["builder"])):
         if max_batches and j >= max_batches:
-            break
-        ids = greedy_decode(model, to_tensors(batch, device))
+            return
+        yield decoder["decode"](to_tensors(batch, decoder["device"])), metas
+
+
+def run_greedy_eval(model, dataset: CaptionDataset, cfg: Config,
+                    max_batches: Optional[int] = None, beam_size: int = 0,
+                    decoder: Optional[dict] = None) -> dict:
+    """Decode a dataset on the model's device into an anet-format
+    submission: greedy (the KV-cached path) by default, beam search with
+    ``beam_size > 1``.  ``decoder`` from ``make_eval_decoder`` reuses one
+    across calls."""
+    if decoder is None:
+        decoder = make_eval_decoder(model, cfg, dataset, beam_size)
+    results = None
+    for ids, metas in _decode_batches(dataset, decoder, max_batches):
         sentences = batch_to_sentences(ids.cpu().numpy(), metas,
                                        dataset.vocab)
         results = collect_results(sentences, metas, results)
+    return build_submission(results or {})
+
+
+def run_nbest_eval(model, dataset: CaptionDataset, cfg: Config,
+                   beam_size: int, n_best: int,
+                   max_batches: Optional[int] = None) -> dict:
+    """Beam-decode a dataset keeping the ``n_best`` ranked hypotheses per
+    (video, step) (the reference's ``--n_best`` surface,
+    train.py:546-548): each entry carries ``nbest: [{sentence, score},
+    ...]`` best-first, and its ``sentence`` is rank 0, so the dict still
+    evaluates as a normal submission."""
+    decoder = make_eval_decoder(model, cfg, dataset, beam_size=beam_size,
+                                n_best=n_best)
+    results = None
+    for (tokens, scores), metas in _decode_batches(dataset, decoder,
+                                                   max_batches):
+        sentences, nbest = nbest_entries(tokens.cpu().numpy(),
+                                         scores.cpu().numpy(), metas,
+                                         dataset.vocab)
+        results = collect_results(sentences, metas, results, extras=nbest)
     return build_submission(results or {})
 
 
@@ -182,13 +247,14 @@ def _resume_point(resume_from: str, state: TrainState):
 
 def train(cfg: Config, workdir: str,
           max_steps_per_epoch: Optional[int] = None,
+          eval_language: bool = True,
           debug_nans: bool = False,
           resume_from: Optional[str] = None,
           device=None) -> Dict:
     """Train on ``device`` (the card unless ``"cpu"``).  Returns
-    ``dict(history, state, model, steps)``, ``steps`` holding each
-    optimizer step of this run as ``{"step", "loss", "grad_norm"}`` (the
-    loss summed over an accumulation group)."""
+    ``dict(best_cider, history, state, model, steps)``, ``steps`` holding
+    each optimizer step of this run as ``{"step", "loss", "grad_norm"}``
+    (the loss summed over an accumulation group)."""
     check_supported(cfg)
     device = resolve_device(device)
     if debug_nans:  # the reference's always-on anomaly detection
@@ -201,8 +267,8 @@ def train(cfg: Config, workdir: str,
     logger.info("train videos: %d, val videos: %d", len(train_ds),
                 len(val_ds))
     if len(val_ds):
-        cfg = cfg.replace_train(val_batch_size=max(
-            1, min(cfg.train.val_batch_size, len(val_ds))))
+        cfg = cfg.replace_train(
+            val_batch_size=eval_batch_size(cfg, len(val_ds)))
 
     model = SVPCModel(cfg.model, torch.Generator().manual_seed(
         cfg.train.seed))
@@ -235,26 +301,47 @@ def train(cfg: Config, workdir: str,
                     resume_skip)
 
     resumed = bool(resume_from)
+    ref_para_path = [p for p in (
+        os.path.join(cfg.data.data_dir, f)
+        for f in para_reference_files(cfg.data.dset_name, "val"))
+        if os.path.exists(p)]
+    if eval_language and not ref_para_path:
+        logger.warning("no paragraph reference files found for %s/val — "
+                       "language eval disabled", cfg.data.dset_name)
+        eval_language = False
     val_builder = (eval_packing_builder(cfg, val_ds,
                                         cfg.train.val_batch_size)
                    if len(val_ds) else None)
     eval_model = SVPCModel(cfg.model).to(device).eval()
+    # one decoder (packed shape, batch size) for every epoch's greedy eval
+    eval_decoder = (make_eval_decoder(eval_model, cfg, val_ds)
+                    if eval_language and len(val_ds) else None)
 
-    best_score = None
+    best_cider = 0.0
+    best_score = 0.0 if eval_language else None  # a CIDEr of 0 never wins
     es_cnt = 0
     history = []
     hist_path = os.path.join(workdir, "history.json")
     if resumed and os.path.exists(hist_path):
         # keep the pre-resume epochs and seed the best-checkpoint
-        # selection and the early-stop counter from them
+        # selection and the early-stop counter from them, so that a worse
+        # epoch after the resume cannot overwrite checkpoint_best
         with open(hist_path) as f:
             history = [h for h in json.load(f) if h["epoch"] < start_epoch]
-        for h in history:
-            score = -h["val"]["loss_per_word"]
-            if best_score is None or score > best_score:
-                best_score, es_cnt = score, 0
-            else:
-                es_cnt += 1
+        prev = [(h["lang"].get("CIDEr", -1.0) if eval_language
+                 else -h["val"]["loss_per_word"]) for h in history]
+        if prev:
+            # never below the fresh run's floor, e.g. when earlier epochs
+            # ran without language eval
+            best_score = max(0.0, max(prev)) if eval_language else max(prev)
+            best_cider = max(h["lang"].get("CIDEr", 0.0) for h in history)
+            # replay the early-stop counter over the earlier epochs
+            running = 0.0 if eval_language else None
+            for score in prev:
+                if running is None or score > running:
+                    running, es_cnt = score, 0
+                else:
+                    es_cnt += 1
     prog_sidecar = os.path.join(workdir, "checkpoint_last.progress.json")
 
     def save_last(completed_epoch: int, batches_done: int, cur_epoch: int,
@@ -296,8 +383,9 @@ def train(cfg: Config, workdir: str,
             train_log.write(f"{epoch},{train_m['loss_per_word']:.5f},"
                             f"{ppl:.5f},{100 * train_m['acc']:.3f}\n")
 
-            # teacher-forced validation and the greedy decode, on the EMA
-            # weights (the attention kernel's path on the card)
+            # teacher-forced validation, then the greedy decode and its
+            # language metrics, on the EMA weights (the attention kernel's
+            # path on the card)
             eval_model.load_state_dict(state.eval_params(), strict=True)
             vmetrics = []
             for j, (batch, _) in enumerate(val_ds.batches(
@@ -308,30 +396,51 @@ def train(cfg: Config, workdir: str,
                 if max_steps_per_epoch and j + 1 >= max_steps_per_epoch:
                     break
             val_m = aggregate_metrics(vmetrics)
-            if len(val_ds):
-                submission = run_greedy_eval(eval_model, val_ds, cfg, device,
-                                             max_batches=max_steps_per_epoch)
+            lang = {}
+            if eval_decoder is not None:
+                submission = run_greedy_eval(eval_model, val_ds, cfg,
+                                             max_batches=max_steps_per_epoch,
+                                             decoder=eval_decoder)
                 with open(os.path.join(workdir, "greedy_pred_val_epoch"
                                        f"{epoch}.json"), "w") as f:
                     json.dump(submission, f, indent=2)
+                lang = evaluate_submission(submission, ref_para_path)
+                logger.info("[epoch %d] val METEOR %.2f B4 %.2f CIDEr %.2f "
+                            "re4 %.2f", epoch, 100 * lang.get("METEOR", 0),
+                            100 * lang["Bleu_4"], 100 * lang["CIDEr"],
+                            100 * lang["re4"])
             vppl = math.exp(min(val_m["loss_per_word"], 100))
             valid_log.write(f"{epoch},{val_m['loss_per_word']:.5f},"
                             f"{vppl:.5f},{100 * val_m['acc']:.3f},"
-                            "0.00,0.00,0.00,0.00\n")
+                            f"{100 * lang.get('METEOR', 0):.2f},"
+                            f"{100 * lang.get('Bleu_4', 0):.2f},"
+                            f"{100 * lang.get('CIDEr', 0):.2f},"
+                            f"{100 * lang.get('re4', 0):.2f}\n")
             train_log.flush()
             valid_log.flush()
             history.append(dict(epoch=epoch, train=train_m, val=val_m,
-                                lang={}))
+                                lang={k: v for k, v in lang.items()
+                                      if isinstance(v, (int, float))}))
 
-            score = -val_m["loss_per_word"]
+            # the selection metric: CIDEr (reference train.py:428-442), else
+            # the validation loss
+            score = (lang.get("CIDEr", -1.0) if eval_language
+                     else -val_m["loss_per_word"])
             save_last(epoch, -1, epoch)
             with open(hist_path, "w") as f:
                 json.dump(history, f, indent=2)
             if cfg.train.save_mode == "all":
-                save_checkpoint(workdir, state, cfg,
-                                name=f"checkpoint_e{epoch}")
+                # the reference's names carry the metrics (train.py:424-427)
+                tag = f"checkpoint_e{epoch}"
+                if lang:
+                    tag += (f"_b{round(100 * lang.get('Bleu_4', 0), 2)}"
+                            f"_m{round(100 * lang.get('METEOR', 0), 2)}"
+                            f"_c{round(100 * lang.get('CIDEr', 0), 2)}"
+                            f"_r{round(100 * lang.get('re4', 0), 2)}")
+                save_checkpoint(workdir, state, cfg, name=tag)
             elif best_score is None or score > best_score:
                 best_score, es_cnt = score, 0
+                best_cider = lang.get("CIDEr", 0.0)
                 save_checkpoint(workdir, state, cfg, name="checkpoint_best")
             else:
                 es_cnt += 1
@@ -342,7 +451,8 @@ def train(cfg: Config, workdir: str,
 
     steps = [{k: float(v) if k != "step" else v for k, v in s.items()}
              for s in steps]
-    return dict(history=history, state=state, model=model, steps=steps)
+    return dict(best_cider=best_cider, history=history, state=state,
+                model=model, steps=steps)
 
 
 def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,

@@ -89,14 +89,34 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg: Config,
     return path
 
 
+def _existing(path: str) -> str:
+    """``path``, or ``<path>.swp`` when a crash left only the
+    replacement."""
+    path = os.path.abspath(path)
+    if not os.path.exists(path) and os.path.exists(path + ".swp"):
+        path = path + ".swp"
+    return path
+
+
+def load_eval_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The weights evaluation uses, from a checkpoint, on the CPU: its
+    model state dict with the EMA shadow (widened back to each parameter's
+    dtype) in place of the parameters when the run kept one, as
+    ``TrainState.eval_params`` gives them."""
+    payload = torch.load(_existing(path), map_location="cpu",
+                         weights_only=True)
+    weights = dict(payload["model"])
+    if payload["ema_shadow"] is not None:
+        weights.update({n: s.to(weights[n].dtype)
+                        for n, s in payload["ema_shadow"].items()})
+    return weights
+
+
 def load_checkpoint(path: str, state: TrainState) -> TrainState:
     """Restore ``state`` in place from a checkpoint (its tensors land on the
     state's device); falls back to ``<path>.swp`` when a crash left only
     the replacement."""
-    path = os.path.abspath(path)
-    if not os.path.exists(path) and os.path.exists(path + ".swp"):
-        path = path + ".swp"
     device = next(iter(state.params.values())).device
-    state.load_state_dict(torch.load(path, map_location=device,
+    state.load_state_dict(torch.load(_existing(path), map_location=device,
                                      weights_only=True))
     return state

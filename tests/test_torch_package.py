@@ -1,9 +1,12 @@
 """Rules of the svpc_torch package: it imports none of JAX, flax, nltk,
-ml_dtypes or svpc_tpu (neither does chip_smoke.py); asking for the card
-without one raises; bfloat16 compute is refused until it is ported."""
+ml_dtypes or svpc_tpu (neither does chip_smoke.py), in its source and when
+every module is imported; asking for the card without one raises;
+bfloat16 compute is refused until it is ported."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -38,6 +41,29 @@ def test_port_imports_no_jax_and_nothing_of_svpc_tpu():
             bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
                     for n in names if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_every_port_module_imports_without_them():
+    """A fresh interpreter imports every module of svpc_torch (the
+    evaluation scorers, beam search and the evaluate / caption CLIs
+    included) and ends with none of the forbidden packages loaded."""
+    names = sorted(
+        os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
+        .replace(".__init__", "")
+        for p in _port_files() if p.endswith(".py")
+        and os.path.basename(p) != "chip_smoke.py")
+    for name in ("svpc_torch.evaluation.meteor", "svpc_torch.evaluation.porter",
+                 "svpc_torch.decode.beam", "svpc_torch.cli.evaluate",
+                 "svpc_torch.cli.caption"):
+        assert name in names, name
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}: importlib.import_module(n)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_cuda_without_a_card_raises():

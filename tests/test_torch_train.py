@@ -171,8 +171,9 @@ def test_cli_trains_and_resumes_mid_epoch_exactly(tmp_path):
     history.json, and keeps the frozen tables at their GloVe values; a run
     killed after the first step of epoch 1 and resumed from its mid-epoch
     checkpoint_last ends with the uninterrupted run's history.json, logs,
-    decodes and weights; resuming the finished run at its epoch boundary
-    with a third epoch appends one epoch to its logs and history."""
+    decodes, weights and checkpoint_best; resuming the finished run at its
+    epoch boundary with a third epoch appends one epoch to its logs and
+    history."""
     import svpc_torch.train.loop as loop
     from svpc_torch.cli.train import main
     from svpc_torch.config import tiny_test_config
@@ -242,6 +243,13 @@ def test_cli_trains_and_resumes_mid_epoch_exactly(tmp_path):
             assert fa.read() == fb.read(), f
     for name, p in res_a["state"].params.items():
         assert torch.equal(p, res_b["state"].params[name]), name
+    # the resumed run seeds its best CIDEr from history.json, so it keeps
+    # the same checkpoint_best
+    bests = [torch.load(os.path.join(w, "checkpoint_best"),
+                        weights_only=True) for w in (a, b)]
+    assert bests[0]["epoch"] == bests[1]["epoch"]
+    assert all(torch.equal(t, bests[1]["model"][k])
+               for k, t in bests[0]["model"].items())
 
     res_c = main(argv(a) + ["--n_epoch", "3", "--resume_from",
                             os.path.join(a, "checkpoint_last")])
