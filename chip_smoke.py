@@ -15,9 +15,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
            key axis (Lq=Lk=300), the widest head the kernel takes (dh=128,
            with a key-padding, a full and a cache mask), a row on each
            side of the threshold between the kernel's decode and tile
-           paths, and the beam decode's cached steps at K=2 (N=192); the path each row took, the kernel's device time
-           (CUDA-graph replay) and eager per-call time, the same for the
-           plain version and for one library call
+           paths, and the beam decode's cached steps at K=2 (N=192), each
+           in float32 and in bfloat16; the path each row took, the
+           kernel's device time (CUDA-graph replay) and eager per-call
+           time, the same for the plain version and for one library call
            (scaled_dot_product_attention, a yardstick the port never
            calls), and the bound: the larger of bytes / 3.35 TB/s and
            operations / the fastest rate of their type that keeps the
@@ -31,6 +32,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
            of its paths.
   parity   one served batch decoded again on the CPU (the plain path):
            first-position probabilities within 1e-4, token agreement.
+  serve_bf16, parity_bf16
+           the same burst with --compute_dtype bfloat16: only the kernel's
+           bfloat16 paths launch (tile and decode); one batch's
+           first-position probabilities on the card against the CPU, both
+           bfloat16, within the band of the reference side (2 max |bf16 -
+           f32| + 1e-5, the CPU's bfloat16 and float32 runs of the same
+           weights), and a control (the card's run with one LayerNorm gain
+           off by 2^-4 of itself) outside it;
+           the feature cast timed on the host (before the copy) and on the
+           card, and the decode with and without the weight-cast cache.
   train    svpc_torch.train.loop.train on the card at full vivt width
            (random init from --seed) on a training fixture (96 train, 16
            val, 16 test videos): batch 16, 2 epochs x 6 steps,
@@ -58,6 +69,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
            kernel's launches by path, a torch.profiler window of train
            steps (device-busy time, idle share, top kernels), the parameter
            count, and whether one step's gradients repeat bit for bit.
+  train_bf16
+           cli.train --compute_dtype bfloat16 --optimizer_dtype bfloat16
+           on the same fixture, 2 epochs x 6 steps with validation: finite
+           losses, only the bfloat16 paths of the kernel (in validation),
+           float32 parameters with bfloat16 moments and shadow; the step
+           timing, memory and profiler window of the train phase; on a
+           4-video validation batch the eval forward's probabilities and
+           one train step's gradients (each parameter's in its own band),
+           card against CPU in the band, the control outside it.
   evaluate svpc_torch.cli.evaluate on the train phase's checkpoint_best:
            greedy, then --use_beam --beam_size 2 --n_best 2
            --ingredient_f1, on the val and test splits (both kernel paths
@@ -70,6 +90,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
            relative; every attention form of the card's beam decode held
            against attention_plain (f32 1e-5) and timed; greedy and beam
            ms per batch (CUDA events) and the scorers' host seconds.
+  evaluate_bf16
+           cli.evaluate --compute_dtype bfloat16 (greedy, val) on the
+           train phase's checkpoint and on the bfloat16 run's (which is
+           also evaluated at float32): bfloat16 paths only, metrics
+           complete, not every sentence of the first run empty; on the
+           first checkpoint greedy ms per batch at bfloat16 and float32,
+           and the teacher-forced probabilities of the card's greedy
+           tokens, card against CPU in the band, the control outside it;
+           token agreement reported.
   serve_beam  svpc_torch.cli.serve --use_beam --n_best 2 on the same
            checkpoint, the 16 test videos as concurrent requests: every
            caption carries two ranked nbest entries, /v1/stats names the
@@ -306,48 +335,59 @@ def phase_kernels(seed: int):
             if not (math.isfinite(err) and err <= row_tol):
                 fail("kernels", f"fused_attention disagrees with "
                                 f"attention_plain: {row}")
-            if dtype == torch.float32:
-                qh, kh, vh = (t.view(n, -1, nh, dh).transpose(1, 2)
-                              for t in (q, k, v))
-                add = ((1.0 - mask) * -10000.0)[:, None]
-                bound, bound_by, bytes_ms = _bound_ms(q, k, v, mask, n, lq,
-                                                      lk)
-                kern = lambda: fused_attention(q, k, v, mask, nh)
-                plain = lambda: attention_plain(q, k, v, mask, nh)
-                lib = lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=add)
-                row.update(ms=device_ms(kern), plain_ms=device_ms(plain),
-                           library_ms=device_ms(lib),
-                           call_ms=call_ms(kern, 100),
-                           plain_call_ms=call_ms(plain, 100),
-                           library_call_ms=call_ms(lib, 100),
-                           bound_ms=bound, bound_by=bound_by,
-                           bytes_bound_ms=bytes_ms)
+            qh, kh, vh = (t.view(n, -1, nh, dh).transpose(1, 2)
+                          for t in (q, k, v))
+            add = ((1.0 - mask) * -10000.0)[:, None].to(dtype)
+            bound, bound_by, bytes_ms = _bound_ms(q, k, v, mask, n, lq, lk)
+            kern = lambda: fused_attention(q, k, v, mask, nh)
+            plain = lambda: attention_plain(q, k, v, mask, nh)
+            lib = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=add)
+            row.update(ms=device_ms(kern), plain_ms=device_ms(plain),
+                       library_ms=device_ms(lib),
+                       call_ms=call_ms(kern, 100),
+                       plain_call_ms=call_ms(plain, 100),
+                       library_call_ms=call_ms(lib, 100),
+                       bound_ms=bound, bound_by=bound_by,
+                       bytes_bound_ms=bytes_ms)
             rows.append(row)
     emit({"phase": "kernels", "ok": True, "card": card_line(),
           "rows": rows})
     return rows
 
 
-def kernel_summary(rows, phase_launches):
-    """One entry per kernel: device times per greedily decoded serving
-    batch (each f32 serving shape weighted by its launches per batch), the
-    same per beam-decoded batch at K=2 (``beam2_batch``: the encoders'
-    rows and the beam rows), the worst f32 error over every row but the
-    no-visible-key one, and the main paths' launch counts (every phase),
-    in all, by the kernel's path and by phase."""
-    total = lambda key: sum(l[key] for l in phase_launches.values())
-    f32 = [r for r in rows
-           if r["dtype"] == "float32" and r["mask"] != "none_visible"]
+def _per_batch(rows, dtype):
+    """Device times of one greedily decoded serving batch in ``dtype``
+    (each serving shape weighted by its launches per batch), the same per
+    beam-decoded batch at K=2 (``beam2_batch``: the encoders' rows and the
+    beam rows), and the worst error over every row but the
+    no-visible-key one."""
+    rs = [r for r in rows
+          if r["dtype"] == dtype and r["mask"] != "none_visible"]
     per_batch = lambda key: sum(r[key] * r["launches_per_batch"]
-                                for r in f32)
+                                for r in rs)
     bytes_ms = per_batch("bytes_bound_ms")
     bound = per_batch("bound_ms")
-    encoders = [r for r in f32 if r["shape"] in ("clip_encoder",
-                                                  "step_encoder")]
+    encoders = [r for r in rs if r["shape"] in ("clip_encoder",
+                                                 "step_encoder")]
     per_beam = lambda key: sum(
         r[key] * (r["launches_per_beam_batch"] or r["launches_per_batch"])
-        for r in f32 if r["launches_per_beam_batch"] or r in encoders)
+        for r in rs if r["launches_per_beam_batch"] or r in encoders)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
+            "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= bound else "operations",
+            "library_ms": per_batch("library_ms"),
+            "beam2_batch": {key: per_beam(key) for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}}
+
+
+def kernel_summary(rows, phase_launches):
+    """One entry per kernel: the float32 serving batch's numbers
+    (``_per_batch``) at the top, the bfloat16 batch's under ``bf16``, and
+    the main paths' launch counts (every phase), in all, by the kernel's
+    path, by path and dtype, and by phase."""
+    total = lambda key: sum(l[key] for l in phase_launches.values())
     return [{
         "name": "fused_attention", "route": "cuda",
         "source": "svpc_torch/csrc/fused_attention.cu",
@@ -355,15 +395,13 @@ def kernel_summary(rows, phase_launches):
         "launches": total("fused_attention"),
         "launches_by_path": {p: total("fused_attention." + p)
                              for p in ("tile", "decode")},
+        "launches_by_path_and_dtype": {
+            f"{p}.{d}": total(f"fused_attention.{p}.{d}")
+            for p in ("tile", "decode") for d in ("f32", "bf16")},
         "launches_by_phase": {ph: l["fused_attention"]
                               for ph, l in phase_launches.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in f32),
-        "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
-        "bound_ms": bound,
-        "bound_by": "bytes" if bytes_ms >= bound else "operations",
-        "library_ms": per_batch("library_ms"),
-        "beam2_batch": {key: per_beam(key) for key in (
-            "ms", "plain_ms", "bound_ms", "library_ms")},
+        **_per_batch(rows, "float32"),
+        "bf16": _per_batch(rows, "bfloat16"),
     }]
 
 
@@ -383,7 +421,23 @@ def _get(url):
         return json.loads(r.read())
 
 
-def phase_serve(seed: int, workdir: str):
+def _dtype_check(phase: str, launches, dtype: str) -> None:
+    """Both of the kernel's paths launched in ``dtype`` (f32 or bf16) in
+    the phase, and none in the other dtype: nothing fell back."""
+    other = "f32" if dtype == "bf16" else "bf16"
+    if not (launches[f"fused_attention.tile.{dtype}"]
+            and launches[f"fused_attention.decode.{dtype}"]) or \
+            launches[f"fused_attention.tile.{other}"] or \
+            launches[f"fused_attention.decode.{other}"]:
+        fail(phase, f"the kernel's {dtype} paths did not both launch, or "
+                    f"{other} launched: {launches}")
+
+
+def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
+                fx=None, ckpt=None):
+    """The greedy burst; ``compute_dtype="bfloat16"`` serves the same
+    fixture and checkpoint (``fx``, ``ckpt``) with --compute_dtype
+    bfloat16 (phase serve_bf16)."""
     from svpc_torch.cli.serve import build_service, start_server, stop_server
     from svpc_torch.config import Config
     from svpc_torch.data.synthetic import write_serving_fixture
@@ -391,20 +445,23 @@ def phase_serve(seed: int, workdir: str):
     from svpc_torch.model.from_jax import save_reference_checkpoint
     from svpc_torch.ops.attention import LAUNCHES, reset_launches
 
+    phase = "serve" if compute_dtype == "float32" else "serve_bf16"
     cfg = Config()  # vivt at its full width (ModelConfig defaults)
     t0 = time.perf_counter()
-    fx = write_serving_fixture(workdir, cfg, n_videos=12, min_clips=3,
-                               max_clips=12, seed=seed)
-    ckpt = os.path.join(workdir, "vivt_random.chkpt")
-    save_reference_checkpoint(
-        ckpt, SVPCModel(cfg.model, torch.Generator().manual_seed(seed)))
+    if fx is None:
+        fx = write_serving_fixture(workdir, cfg, n_videos=12, min_clips=3,
+                                   max_clips=12, seed=seed)
+        ckpt = os.path.join(workdir, "vivt_random.chkpt")
+        save_reference_checkpoint(
+            ckpt, SVPCModel(cfg.model, torch.Generator().manual_seed(seed)))
     argv = ["--model_type", "vivt", "--torch_checkpoint",
             "--checkpoint", ckpt,
             "--word2idx_path", fx["word2idx_path"],
             "--verb2idx_path", fx["verb2idx_path"],
             "--video_feature_dir", fx["video_feature_dir"],
             "--duration_file", fx["duration_file"],
-            "--batch_videos", "8", "--max_clips", "12"]
+            "--batch_videos", "8", "--max_clips", "12",
+            "--compute_dtype", compute_dtype]
     service, _ = build_service(argv)          # loads, warms on the card
     server = start_server(service, "127.0.0.1", 0, max_wait_ms=100.0)
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -431,27 +488,28 @@ def phase_serve(seed: int, workdir: str):
         wall = time.perf_counter() - t1
         launches = dict(LAUNCHES)
         stats = _get(base + "/v1/stats")
+        health = _get(base + "/healthz")
     finally:
         stop_server(server)
     if errors or any(t.is_alive() for t in threads):
-        fail("serve", f"requests failed: {errors}")
+        fail(phase, f"requests failed: {errors}")
     for vid, (code, resp) in results.items():
         caps = resp.get("captions", [])
         if code != 200 or len(caps) != len(specs[vid]["timestamps"]) or \
                 not all(isinstance(c.get("sentence"), str) for c in caps):
-            fail("serve", f"{vid}: bad response {code} {resp}")
+            fail(phase, f"{vid}: bad response {code} {resp}")
     n_clips = sum(len(s["timestamps"]) for s in specs.values())
     batches = stats["batches"]
     if not batches or stats["videos"] <= batches:
-        fail("serve", f"no batch held more than one video: {stats}")
+        fail(phase, f"no batch held more than one video: {stats}")
     if launches["fused_attention"] < 88 * batches:
-        fail("serve", f"fused_attention launched {launches} times for "
-                      f"{batches} batches (< 88 per batch)")
-    if not (launches["fused_attention.tile"]
-            and launches["fused_attention.decode"]):
-        fail("serve", f"a path of fused_attention never launched: "
-                      f"{launches}")
-    emit({"phase": "serve", "ok": True, "setup_s": setup_s,
+        fail(phase, f"fused_attention launched {launches} times for "
+                    f"{batches} batches (< 88 per batch)")
+    _dtype_check(phase, launches,
+                 "f32" if compute_dtype == "float32" else "bf16")
+    if health.get("compute_dtype") != compute_dtype:
+        fail(phase, f"/healthz compute_dtype: {health}")
+    emit({"phase": phase, "ok": True, "setup_s": setup_s,
           "requests": len(results), "clips": n_clips, "wall_s": wall,
           "clips_per_s": n_clips / wall, "batches": batches,
           "mean_batch_videos": stats["mean_batch_videos"],
@@ -508,6 +566,134 @@ def phase_parity(service, fx, ckpt):
     emit(dict(row, ok=True))
 
 
+def _band(card16, cpu16, cpu32, mask=None) -> dict:
+    """The bfloat16 check of one output: max |card16 - cpu16| against the
+    band of the reference side alone, 2 max |cpu16 - cpu32| + 1e-5 (the
+    port's own bfloat16 error on the CPU, over ``mask``'s entries)."""
+    a, b, c = (t.detach().float().cpu() for t in (card16, cpu16, cpu32))
+    if mask is not None:
+        a, b, c = a[mask], b[mask], c[mask]
+    band = 2.0 * (b - c).abs().max().item() + 1e-5
+    err = (a - b).abs().max().item()
+    return {"err": err, "band": band, "ok": math.isfinite(err) and err <= band}
+
+
+def _band_per_tensor(names, card16, cpu16, cpu32) -> dict:
+    """``_band`` of each tensor of three lists (a gradient per parameter):
+    ok when every tensor is inside its own band; the tensor nearest its
+    band is reported."""
+    checks = [dict(_band(*t), name=n)
+              for n, *t in zip(names, card16, cpu16, cpu32)]
+    worst = max(checks, key=lambda c: c["err"] / c["band"])
+    return {"tensors": len(checks),
+            "outside": sum(not c["ok"] for c in checks),
+            "worst": worst, "ok": all(c["ok"] for c in checks)}
+
+
+# the control of every bfloat16 check: the card's run with this weight (the
+# last decoder layer's LayerNorm gain) off by 2^-4 of itself, random signs,
+# must come out outside the band
+CONTROL_WEIGHT = "decoder.layer.1.output.LayerNorm.weight"
+
+
+def _perturbed(model):
+    """A copy of ``model`` with ``CONTROL_WEIGHT`` perturbed."""
+    ctl = copy.deepcopy(model)
+    w = ctl.get_parameter(CONTROL_WEIGHT)
+    sign = torch.randint(0, 2, w.shape,
+                         generator=torch.Generator().manual_seed(0)) * 2 - 1
+    with torch.no_grad():
+        w.mul_(1.0 + 2.0 ** -4 * sign.to(w.device, w.dtype))
+    return ctl
+
+
+def phase_parity_bf16(service, fx, ckpt):
+    """One served batch at bfloat16: the first position's probabilities on
+    the card against the CPU's (both bfloat16) within the band of the
+    CPU's bfloat16 against its float32 run of the same weights, and the
+    control (``_perturbed``) outside it; greedy tokens compared with the
+    CPU's bfloat16 and the card's float32 run.  Timed: where the feature
+    cast goes (on the card after a float32 copy, as the port does, or on
+    the host before the copy, as svpc_tpu does), and the decode with and
+    without the eval-mode weight-cast cache."""
+    from svpc_torch import tokenization as tok
+    from svpc_torch.cli.common import load_reference_model
+    from svpc_torch.decode.greedy import greedy_decode
+    from svpc_torch.model.svpc import clip_view, to_tensors
+
+    vids = list(fx["specs"])[:service.batch_videos]
+    examples = [service.example_for(service.make_entry(v, fx["specs"][v]))
+                for v in vids]
+    batch = service.build_batch(examples)
+    cfg16 = service.cfg
+    _, cpu16 = load_reference_model(cfg16, ckpt)
+    _, cpu32 = load_reference_model(
+        cfg16.replace_model(compute_dtype="float32"), ckpt)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def first_position(model, dev, fdt, decode=True):
+        b = to_tensors(batch, dev, fdt)
+        with torch.no_grad():
+            state = model.encode(b)
+            n = b["clip_input_ids"].shape[0]
+            caches, enc_kv = model.init_decode_caches((n, 1), state)
+            bos = torch.full((n, 1), tok.BOS, dtype=torch.long, device=dev)
+            probs, _ = model.score_position_cached(clip_view(b), state, bos,
+                                                   0, caches, enc_kv)
+        return probs.cpu(), greedy_decode(model, b).cpu() if decode else None
+
+    p16, t16 = first_position(service.model, cuda, torch.bfloat16)
+    _, t32 = first_position(copy.deepcopy(cpu32).to(cuda).eval(), cuda,
+                            torch.float32)
+    pc, tc = first_position(cpu16.eval(), cpu, torch.bfloat16)
+    pc32, _ = first_position(cpu32.eval(), cpu, torch.float32, decode=False)
+    pctl, _ = first_position(_perturbed(service.model), cuda,
+                             torch.bfloat16, decode=False)
+    real = torch.from_numpy(batch["clip_mask"]) > 0
+    step = torch.from_numpy(batch["step_mask"]) > 0
+    check = _band(p16, pc, pc32, real)
+    control = _band(pctl, pc, pc32, real)
+
+    key = "clip_video_feature"
+    host_ms, card_ms = [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        {k: t.to(cuda) for k, t in to_tensors(batch, cpu,
+                                              torch.bfloat16).items()}
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        to_tensors(batch, cuda, torch.bfloat16)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # a Linear casts its weights on every call in training mode, which
+    # changes nothing else in a decode (dropout follows ``deterministic``)
+    b = to_tensors(batch, cuda, torch.bfloat16)
+    decode_ms = {True: [], False: []}
+    for cached in (True, False) * 4:
+        service.model.train(not cached)
+        decode_ms[cached].append(_events_ms(
+            lambda: greedy_decode(service.model, b), reps=2))
+    service.model.eval()
+    row = {"phase": "parity_bf16", "clips": int(real.sum()),
+           "probs_t0": check, "control_probs_t0": control,
+           "token_agreement_cpu_bf16": (
+               t16 == tc)[step].float().mean().item(),
+           "token_agreement_card_f32": (t16 == t32)[step].float().mean()
+           .item(),
+           "feature_bytes": {"bf16": batch[key].size * 2,
+                             "f32": batch[key].size * 4},
+           "to_device_ms_host_cast": host_ms,
+           "to_device_ms_card_cast": card_ms,
+           "greedy_ms_cast_cache_on": decode_ms[True],
+           "greedy_ms_cast_cache_off": decode_ms[False],
+           "card": card_line()}
+    if not check["ok"] or control["ok"]:
+        fail("parity_bf16", json.dumps(row))
+    emit(dict(row, ok=True))
+
+
 # ---------------------------------------------------------------------- #
 # train
 # ---------------------------------------------------------------------- #
@@ -527,9 +713,11 @@ def _train_cfg(fx):
         checkpoint_every_steps=3)
 
 
-def _counted_train(loop, cfg, workdir, kill_after=None, resume_from=None):
-    """loop.train on the card; returns (result, kernel launches made inside
-    train steps).  ``kill_after`` raises _Killed at that train step."""
+def _counted_train(loop, cfg, workdir, kill_after=None, resume_from=None,
+                   run=None):
+    """loop.train on the card (or ``run()``, which calls it); returns
+    (result, kernel launches made inside train steps).  ``kill_after``
+    raises _Killed at that train step."""
     from svpc_torch.ops.attention import LAUNCHES
 
     real, inside = loop.train_step, {"n": 0, "steps": 0}
@@ -545,8 +733,9 @@ def _counted_train(loop, cfg, workdir, kill_after=None, resume_from=None):
 
     loop.train_step = counted
     try:
-        res = loop.train(cfg, workdir, resume_from=resume_from,
-                         device="cuda")
+        res = run() if run else loop.train(cfg, workdir,
+                                           resume_from=resume_from,
+                                           device="cuda")
     finally:
         loop.train_step = real
     return res, inside["n"]
@@ -937,6 +1126,148 @@ def phase_train(seed: int, workdir: str):
     return launches, fx, cfg, os.path.join(workdir, "a")
 
 
+def _fixture_argv(fx):
+    return ["--model_type", "vivt", "--data_dir", fx["data_dir"],
+            "--word2idx_path", fx["word2idx_path"],
+            "--verb2idx_path", fx["verb2idx_path"],
+            "--video_feature_dir", fx["video_feature_dir"],
+            "--duration_file", fx["duration_file"]]
+
+
+def _bf16_train_parity(cfg16, state, seed):
+    """One small validation batch (4 videos) at bfloat16 on the card and
+    on the CPU, with the CPU's float32 run of the same weights for the
+    band, and the control (``_perturbed``) on the card: the eval forward's
+    probabilities on the EMA weights, and one train step's gradients
+    (dropout 0, the same Gumbel noise) on the trained parameters, each
+    parameter's gradient in its own band.  Returns (checks, the control's
+    checks, the eval forward's losses of each run)."""
+    import svpc_torch.train.loop as loop
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+
+    cfg16 = cfg16.replace_model(hidden_dropout_prob=0.0,
+                                attention_probs_dropout_prob=0.0,
+                                reasoner_dropout_prob=0.0)
+    val_ds = CaptionDataset(cfg16, "val", lazy_features=True)
+    batch_np, _ = next(val_ds.batches(
+        4, builder=loop.eval_packing_builder(cfg16, val_ds, 4)))
+    runs = {"card16": ("cuda", "bfloat16"), "cpu16": ("cpu", "bfloat16"),
+            "cpu32": ("cpu", "float32"), "control": ("cuda", "bfloat16")}
+    probs, grads, losses = {}, {}, {}
+    with _SharedGumbel(seed):
+        for name, (dev, dtype) in runs.items():
+            model = SVPCModel(cfg16.replace_model(compute_dtype=dtype)
+                              .model).to(dev).eval()
+            b = to_tensors(batch_np, torch.device(dev), model.compute_dtype)
+            model.load_state_dict({n: t.to(dev) for n, t in
+                                   state.eval_params().items()})
+            if name == "control":
+                model = _perturbed(model)
+            with torch.no_grad():
+                out = model(b, deterministic=True)
+            probs[name] = [getattr(out, k).float().cpu() for k in (
+                "prediction_scores", "ent_probs", "ac_probs")]
+            losses[name] = {k: float(getattr(out, k)) for k in (
+                "caption_loss", "entity_loss", "action_loss",
+                "re_entity_loss", "re_action_loss")}
+            model.load_state_dict({n: t.detach().to(dev) for n, t in
+                                   state.params.items()})
+            if name == "control":
+                model = _perturbed(model)
+            model(b, deterministic=False).total_loss.backward()
+            grads[name] = [p.grad.float().cpu() for p in model.parameters()]
+    names = [n for n, _ in model.named_parameters()]
+
+    def checks(card):
+        out = {k: _band(probs[card][i], probs["cpu16"][i], probs["cpu32"][i])
+               for i, k in enumerate(("prediction_scores", "ent_probs",
+                                      "ac_probs"))}
+        out["gradients"] = _band_per_tensor(
+            names, *(grads[r] for r in (card, "cpu16", "cpu32")))
+        return out
+
+    return checks("card16"), checks("control"), losses
+
+
+def phase_train_bf16(seed: int, workdir: str, fx):
+    """cli.train --compute_dtype bfloat16 --optimizer_dtype bfloat16 on the
+    train phase's fixture, 2 epochs x 6 steps with validation and language
+    eval: finite losses, the kernel's bfloat16 paths only (validation; none
+    inside a train step), float32 parameters with bfloat16 moments and
+    shadow; step timing, peak memory and a profiler window as in the train
+    phase; the card against the CPU (``_bf16_train_parity``)."""
+    import svpc_torch.train.loop as loop
+    from svpc_torch.cli import train as train_cli
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    wd = os.path.join(workdir, "bf16")
+    argv = _fixture_argv(fx) + [
+        "--batch_size", "16", "--val_batch_size", "16", "--n_epoch", "2",
+        "--compute_dtype", "bfloat16", "--optimizer_dtype", "bfloat16",
+        "--workdir", wd]
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    res, in_steps = _counted_train(loop, None, wd,
+                                   run=lambda: train_cli.main(argv))
+    train_s = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    losses = [s["loss"] for s in res["steps"]]
+    if len(losses) != 12 or not all(math.isfinite(x) for x in losses):
+        fail("train_bf16", f"losses {losses}")
+    if in_steps:
+        fail("train_bf16", f"fused_attention launched {in_steps} times "
+                           "inside train steps")
+    _dtype_check("train_bf16", launches, "bf16")
+    state = res["state"]
+    dtypes = {"params": {str(p.dtype) for p in state.params.values()},
+              "moments": {str(t.dtype) for t in state.optimizer.m.values()},
+              "shadow": {str(t.dtype) for t in state.ema_shadow.values()}}
+    if dtypes != {"params": {"torch.float32"},
+                  "moments": {"torch.bfloat16"},
+                  "shadow": {"torch.bfloat16"}}:
+        fail("train_bf16", f"state dtypes {dtypes}")
+
+    cfg16 = _train_cfg(fx).replace_model(compute_dtype="bfloat16") \
+        .replace_train(optimizer_dtype="bfloat16")
+    batch_np, _ = next(CaptionDataset(cfg16, "train", lazy_features=True)
+                       .batches(16, shuffle=True, seed=cfg16.train.seed,
+                                builder=loop.packing_builder(cfg16)))
+    batch = to_tensors(batch_np, torch.device("cuda"), torch.bfloat16)
+    clips = int(batch_np["clip_mask"].sum())
+    torch.cuda.reset_peak_memory_stats()
+    timing = _step_timing(state, batch, cfg16)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sum(timing[k] for k in ("forward_ms", "backward_ms",
+                                      "optimizer_ms"))
+    profile = _profile_steps(state, batch, cfg16)
+    checks, control, eval_losses = _bf16_train_parity(cfg16, state, seed)
+    row = {"phase": "train_bf16", "phase_s": time.perf_counter() - t_phase,
+           "train_s": train_s, "losses": losses, "launches": launches,
+           "launches_in_train_steps": in_steps, "state_dtypes": {
+               k: sorted(v) for k, v in dtypes.items()},
+           "history_cider": [h["lang"].get("CIDEr") for h in res["history"]],
+           "batch_clips": clips, "packed_clips": len(batch_np["clip_mask"]),
+           "step_ms": step_ms, **timing,
+           "clips_per_s": clips / step_ms * 1e3,
+           "max_memory_allocated": peak, "profile": profile,
+           "parity": checks, "control": control,
+           "parity_eval_losses": eval_losses, "card": card_line()}
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if all(c["ok"] for c in control.values()):
+        bad.append("the control (a perturbed weight) passed")
+    if bad:
+        fail("train_bf16", f"card and CPU disagree on {bad}: "
+                           f"{json.dumps(row)}")
+    emit(dict(row, ok=True))
+    return launches, wd
+
+
 # ---------------------------------------------------------------------- #
 # evaluate
 # ---------------------------------------------------------------------- #
@@ -947,12 +1278,7 @@ METRIC_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR",
 
 
 def _eval_argv(fx, checkpoint):
-    return ["--model_type", "vivt", "--checkpoint", checkpoint,
-            "--data_dir", fx["data_dir"],
-            "--word2idx_path", fx["word2idx_path"],
-            "--verb2idx_path", fx["verb2idx_path"],
-            "--video_feature_dir", fx["video_feature_dir"],
-            "--duration_file", fx["duration_file"]]
+    return _fixture_argv(fx) + ["--checkpoint", checkpoint]
 
 
 def _events_ms(fn, reps=3) -> float:
@@ -1113,6 +1439,155 @@ def phase_evaluate(fx, train_dir):
     return launches
 
 
+def _checkpoint(train_dir):
+    """A trainer's checkpoint_best, or checkpoint_last when no epoch scored
+    a CIDEr above 0."""
+    name = "checkpoint_best"
+    if not os.path.exists(os.path.join(train_dir, name)):
+        name = "checkpoint_last"
+    return os.path.join(train_dir, name)
+
+
+def _empty(run) -> dict:
+    """The empty sentences of a cli.evaluate run's submission."""
+    entries = [e for v in run["submission"]["results"].values() for e in v]
+    return {"sentences": len(entries),
+            "empty": sum(not e["sentence"].strip() for e in entries)}
+
+
+def phase_evaluate_bf16(fx, train_dir, train_dir16):
+    """cli.evaluate --compute_dtype bfloat16 (greedy, val) on the float32
+    run's checkpoint (its captions have words) and on the bfloat16 run's:
+    the kernel's bfloat16 paths only, every metric present, and not every
+    sentence of the float32 run's checkpoint empty; the bfloat16 run's
+    checkpoint is also evaluated at float32 (it loads at either dtype).
+    On one val batch (16 videos) of the float32 run's checkpoint: greedy ms
+    per batch at bfloat16 and at float32 (CUDA events), and the
+    teacher-forced probabilities of the card's greedy tokens on the card
+    and the CPU (bfloat16) within the band of the CPU's bfloat16 against
+    its float32 run, the control (``_perturbed``) outside it; greedy
+    tokens compared (at every real position, and at the positions the card
+    decides by a top-1 / top-2 margin above the band)."""
+    import svpc_torch.train.loop as loop
+    from svpc_torch import tokenization as tok
+    from svpc_torch.cli.common import config_from_args, load_checkpoint_model
+    from svpc_torch.cli.evaluate import _parser
+    from svpc_torch.cli.evaluate import main as evaluate_main
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.decode.greedy import greedy_decode
+    from svpc_torch.model.svpc import clip_view, to_tensors
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    checkpoint, checkpoint16 = _checkpoint(train_dir), _checkpoint(
+        train_dir16)
+
+    def evaluate(ckpt, dtype, out):
+        return evaluate_main(_eval_argv(fx, ckpt) + [
+            "--split", "val", "--val_batch_size", "16", "--compute_dtype",
+            dtype, "--output_dir", os.path.join(train_dir16, out)])
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    run = evaluate(checkpoint, "bfloat16", "eval_f32_trained")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    run16 = evaluate(checkpoint16, "bfloat16", "eval_bf16_trained")
+    launches = dict(LAUNCHES)
+    _dtype_check("evaluate_bf16", launches, "bf16")
+    run16_at32 = evaluate(checkpoint16, "float32", "eval_bf16_trained_f32")
+    bad = [f"{k} ({name})" for name, r in (
+        ("float32 run's", run), ("bfloat16 run's", run16),
+        ("bfloat16 run's at f32", run16_at32))
+        for k in METRIC_KEYS if k not in r["metrics"]]
+    empty = {"float32_trained_at_bf16": _empty(run),
+             "bf16_trained_at_bf16": _empty(run16),
+             "bf16_trained_at_f32": _empty(run16_at32)}
+    if empty["float32_trained_at_bf16"]["empty"] == \
+            empty["float32_trained_at_bf16"]["sentences"]:
+        bad.append("every sentence of the float32 run's checkpoint is empty")
+
+    models = {}
+    for dtype in ("bfloat16", "float32"):
+        args = _parser().parse_args(_eval_argv(fx, checkpoint) + [
+            "--output_dir", "unused", "--split", "val",
+            "--compute_dtype", dtype])
+        cfg, models[dtype] = load_checkpoint_model(config_from_args(args),
+                                                   args)
+    card = {d: copy.deepcopy(m).to("cuda") for d, m in models.items()}
+    ds = CaptionDataset(cfg, "val", lazy_features=True)
+    dec = loop.make_eval_decoder(card["bfloat16"], cfg, ds)
+    batch_np, _ = next(ds.batches(dec["cfg"].train.val_batch_size,
+                                  builder=dec["builder"]))
+    batches = {"card16": to_tensors(batch_np, torch.device("cuda"),
+                                    torch.bfloat16),
+               "card32": to_tensors(batch_np, torch.device("cuda")),
+               "cpu16": to_tensors(batch_np, torch.device("cpu"),
+                                   torch.bfloat16),
+               "cpu32": to_tensors(batch_np, torch.device("cpu"))}
+    batches["control"] = batches["card16"]
+    runs = {"card16": card["bfloat16"], "card32": card["float32"],
+            "cpu16": models["bfloat16"], "cpu32": models["float32"],
+            "control": _perturbed(card["bfloat16"])}
+    ms = {"card16": [], "card32": []}
+    for k in ("card16", "card32") * 3:                    # alternating
+        ms[k].append(_events_ms(lambda: greedy_decode(runs[k], batches[k])))
+    tokens = {k: greedy_decode(runs[k], batches[k]).cpu()
+              for k in ("card16", "cpu16")}
+    cv = torch.from_numpy(batch_np["clip_video"]).long()
+    cs = torch.from_numpy(batch_np["clip_step"]).long()
+    fed = tokens["card16"][cv, cs]                               # (N, T)
+    V = cfg.model.vocab_size
+    fed = torch.where(fed >= V, torch.full_like(fed, tok.UNK), fed)[:, None]
+    probs = {}
+    with torch.no_grad():
+        for k, model in runs.items():
+            if k == "card32":
+                continue
+            b = batches[k]
+            ids = fed.to(b["step_mask"].device)
+            probs[k] = model.score_text(
+                clip_view(b), model.encode(b), ids,
+                torch.ones(ids.shape, device=ids.device)).float().cpu()
+    real = torch.from_numpy(batch_np["clip_mask"]) > 0
+    check, control = (_band(probs[k], probs["cpu16"], probs["cpu32"], real)
+                      for k in ("card16", "control"))
+    ext = V + torch.from_numpy(batch_np["oov_count"]).long()[cv]
+    cols = torch.arange(probs["card16"].shape[-1])
+    ok = (cols[None] < ext[:, None]) & (cols[None] != tok.UNK)
+    sel = {k: probs[k].masked_fill(~ok[:, None, None], -1.0)
+           for k in ("card16", "cpu16")}
+    top2 = sel["card16"].topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > check["band"])[real]
+    agree = (sel["card16"].argmax(-1) == sel["cpu16"].argmax(-1))[real]
+    step = torch.from_numpy(batch_np["step_mask"]) > 0
+    row = {"phase": "evaluate_bf16", "phase_s": time.perf_counter() - t0,
+           "checkpoints": [os.path.relpath(c, os.path.dirname(train_dir))
+                           for c in (checkpoint, checkpoint16)],
+           "evaluate_s": eval_s, "launches": launches,
+           "metrics": {k: run["metrics"].get(k) for k in METRIC_KEYS},
+           "metrics_bf16_trained": {k: run16["metrics"].get(k)
+                                    for k in METRIC_KEYS},
+           "empty_sentences": empty,
+           "greedy_ms_per_batch_bf16": sorted(ms["card16"]),
+           "greedy_ms_per_batch_f32": sorted(ms["card32"]),
+           "teacher_forced_probs": check, "control": control,
+           "decided_positions": int(decided.sum()),
+           "argmax_differs_at_decided": int((decided & ~agree).sum()),
+           "free_running_token_agreement": (
+               tokens["card16"] == tokens["cpu16"])[step].float().mean()
+           .item(), "card": card_line()}
+    if not check["ok"]:
+        bad.append("teacher-forced probabilities")
+    if control["ok"]:
+        bad.append("the control (a perturbed weight) passed")
+    if bad:
+        fail("evaluate_bf16", f"{bad}: {json.dumps(row, default=str)}")
+    emit(dict(row, ok=True))
+    return launches
+
+
 # ---------------------------------------------------------------------- #
 # serve_beam
 # ---------------------------------------------------------------------- #
@@ -1223,17 +1698,23 @@ def main(argv=None) -> int:
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build) \
             as workdir:
-        service, fx, ckpt, launches = phase_serve(args.seed, workdir)
+        phases = {}
+        service, fx, ckpt, phases["serve"] = phase_serve(args.seed, workdir)
         phase_parity(service, fx, ckpt)
-        train_launches, train_fx, _, train_dir = phase_train(args.seed,
-                                                              workdir)
-        eval_launches = phase_evaluate(train_fx, train_dir)
-        beam_launches = phase_serve_beam(train_fx, train_dir)
+        service16, _, _, phases["serve_bf16"] = phase_serve(
+            args.seed, workdir, "bfloat16", fx, ckpt)
+        phase_parity_bf16(service16, fx, ckpt)
+        del service, service16
+        phases["train"], train_fx, _, train_dir = phase_train(args.seed,
+                                                               workdir)
+        phases["train_bf16"], train_dir16 = phase_train_bf16(
+            args.seed, workdir, train_fx)
+        phases["evaluate"] = phase_evaluate(train_fx, train_dir)
+        phases["evaluate_bf16"] = phase_evaluate_bf16(train_fx, train_dir,
+                                                      train_dir16)
+        phases["serve_beam"] = phase_serve_beam(train_fx, train_dir)
     print(card_line(), flush=True)
-    emit({"kernels": kernel_summary(rows, {"serve": launches,
-                                           "train": train_launches,
-                                           "evaluate": eval_launches,
-                                           "serve_beam": beam_launches})})
+    emit({"kernels": kernel_summary(rows, phases)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

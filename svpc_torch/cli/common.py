@@ -34,6 +34,12 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "(B, S) step grid like the reference)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="float32: the parity path; bfloat16: activations "
+                        "and most products in bfloat16, parameters, "
+                        "softmaxes and losses in float32.  A run-time "
+                        "choice: any checkpoint loads at either")
 
 
 def config_from_args(args) -> Config:
@@ -48,7 +54,8 @@ def config_from_args(args) -> Config:
             vocab_size=vocab_size, action_vocab_size=action_vocab_size,
             model_mode=MODEL_TYPE_TO_MODE[args.model_type],
             max_n_sen=args.max_n_sen, max_t_len=args.max_t_len,
-            max_v_len=args.max_v_len, max_i_len=args.max_i_len),
+            max_v_len=args.max_v_len, max_i_len=args.max_i_len,
+            compute_dtype=args.compute_dtype),
         data=DataConfig(
             dset_name=args.dset_name, data_dir=args.data_dir,
             video_feature_dir=args.video_feature_dir,
@@ -157,8 +164,10 @@ def adopt_checkpoint_sidecar(cfg: Config, checkpoint_path: str) -> Config:
     """Adopt what a trainer checkpoint's weights fix from its
     ``<checkpoint>.cfg.json`` sidecar: the whole model configuration (the
     inference CLIs take no architecture flags), keeping the caller's clip
-    budget ``max_n_sen``.  The caller's model type and vocabularies must
-    be the checkpoint's.  No sidecar: ``cfg`` as it is."""
+    budget ``max_n_sen`` and ``compute_dtype``, a run-time choice as in
+    svpc_tpu (whose sidecar adoption never takes it).  The caller's model
+    type and vocabularies must be the checkpoint's.  No sidecar: ``cfg`` as
+    it is."""
     sidecar = os.path.abspath(checkpoint_path) + ".cfg.json"
     if not os.path.exists(sidecar):
         return cfg
@@ -169,20 +178,23 @@ def adopt_checkpoint_sidecar(cfg: Config, checkpoint_path: str) -> Config:
             raise SystemExit(f"{checkpoint_path} was trained with "
                              f"{field}={want}, the flags give {got}")
     return Config(
-        model=dataclasses.replace(saved.model, max_n_sen=cfg.model.max_n_sen),
+        model=dataclasses.replace(saved.model, max_n_sen=cfg.model.max_n_sen,
+                                  compute_dtype=cfg.model.compute_dtype),
         data=cfg.data, train=cfg.train)
 
 
 def load_reference_model(cfg: Config, checkpoint: str):
     """(cfg, model) from a reference-format ``.chkpt``: the checkpoint's
     geometry overrides the architecture fields of ``cfg``; the serving
-    budgets (steps, entities, OOV slots) stay the caller's."""
+    budgets (steps, entities, OOV slots) and the compute dtype stay the
+    caller's."""
     from svpc_torch.model import SVPCModel
     from svpc_torch.model.from_jax import load_reference_checkpoint
     m = cfg.model
     mcfg, state = load_reference_checkpoint(
         checkpoint, max_n_sen=m.max_n_sen, max_entities=m.max_entities,
-        max_oov=m.max_oov, max_ingr_words=m.max_ingr_words)
+        max_oov=m.max_oov, max_ingr_words=m.max_ingr_words,
+        compute_dtype=m.compute_dtype)
     model = SVPCModel(mcfg)
     model.load_state_dict(state, strict=True)
     return Config(model=mcfg, data=cfg.data, train=cfg.train), model

@@ -133,7 +133,8 @@ def main(argv=None) -> dict:
         {k: v for k, v in metrics.items() if isinstance(v, (int, float))},
         indent=2))
     return dict(submission=submission, metrics=metrics,
-                submission_path=sub_path, metrics_path=metrics_path)
+                submission_path=sub_path, metrics_path=metrics_path,
+                cfg=cfg)
 
 
 if __name__ == "__main__":

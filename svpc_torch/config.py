@@ -88,7 +88,8 @@ class ModelConfig:
                                    # ablation but hardcodes ASL)
 
     # numerics: "float32" reproduces the reference token-for-token;
-    # "bfloat16" (matmuls in bf16, softmax/LN in f32) is not ported yet
+    # "bfloat16" is the fast path (matmuls in bf16, softmax/LN in f32;
+    # svpc_torch/precision.py)
     compute_dtype: str = "float32"
     # kept so config sidecars round-trip with svpc_tpu.  The port ignores
     # it: on a CUDA tensor every deterministic attention runs the

@@ -17,15 +17,19 @@ from typing import Iterator
 
 import torch
 
-from svpc_torch.model.svpc import to_tensors
+from svpc_torch.model.svpc import FEATURE_KEYS, to_tensors
 
 _SENTINEL = object()
 
 
-def prefetch_to_device(iterator: Iterator, device, size: int = 2
+def prefetch_to_device(iterator: Iterator, device, size: int = 2,
+                       feature_dtype: torch.dtype = torch.float32
                        ) -> Iterator:
     """Wrap a (numpy batch, metas) iterator: yields (tensor batch on
-    ``device``, metas), built and copied in a background thread."""
+    ``device``, metas), built and copied in a background thread; the
+    video features are cast to ``feature_dtype`` on the device, after the
+    copy (as ``to_tensors`` does; svpc_tpu/train/loop.py:250 casts them
+    on the host)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -43,12 +47,14 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2
         return False
 
     def to_device(batch) -> tuple:
-        host = to_tensors(batch, torch.device("cpu"))
         if not cuda:
-            return host, None
+            return to_tensors(batch, device, feature_dtype), None
+        host = to_tensors(batch, torch.device("cpu"))
         with torch.cuda.stream(copy_stream):
             out = {k: t.pin_memory().to(device, non_blocking=True)
                    for k, t in host.items()}
+            out.update({k: out[k].to(feature_dtype)
+                        for k in FEATURE_KEYS if k in out})
             ready = torch.cuda.Event()
             ready.record(copy_stream)
         return out, ready

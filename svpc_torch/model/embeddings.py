@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from svpc_torch.config import ModelConfig
-from svpc_torch.model.layers import LayerNorm, _dropout
+from svpc_torch.model.layers import LayerNorm, Linear, _dropout
+from svpc_torch.precision import check_compute_dtype
 
 
 def sinusoid_table(max_len: int, dim: int) -> np.ndarray:
@@ -53,19 +54,24 @@ def add_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
 
 class WordFC(nn.Sequential):
     """LN -> dropout -> Linear -> ReLU -> LN (reference model.py:493-499);
-    indices 0/2/4 carry the reference parameter names."""
+    indices 0/2/4 carry the reference parameter names.  The input is cast
+    to the compute dtype first (svpc_tpu's WordFC casts the looked-up word
+    vectors, and its model casts the video features before their block),
+    so everything after runs in it."""
 
     def __init__(self, cfg: ModelConfig, in_features: int):
         super().__init__(
             LayerNorm(in_features, cfg.layer_norm_eps),
             nn.Dropout(cfg.hidden_dropout_prob),
-            nn.Linear(in_features, cfg.hidden_size),
+            Linear(in_features, cfg.hidden_size),
             nn.ReLU(),
             LayerNorm(cfg.hidden_size, cfg.layer_norm_eps))
         self.dropout_p = cfg.hidden_dropout_prob
+        self.compute_dtype = check_compute_dtype(cfg)
 
     def forward(self, x, deterministic: bool = True, generator=None):
-        h = _dropout(self[0](x), self.dropout_p, deterministic, generator)
+        h = _dropout(self[0](x.to(self.compute_dtype)), self.dropout_p,
+                     deterministic, generator)
         return self[4](torch.relu(self[2](h)))
 
 

@@ -10,6 +10,12 @@ under autograd, with dropout on its probabilities, as svpc_tpu runs
 ``attention_core`` outside its Pallas kernel there.  The additive mask
 ``(1 - m) * -10000`` is kept exactly.  Every dropout draw comes from the
 ``generator`` passed down the call (the training step seeds one per step).
+
+Numerics follow svpc_tpu's map in both compute dtypes: ``Linear`` is
+``nn.Dense(dtype=...)`` (the Q/K/V projections compute in the config's
+dtype, every other dense in its input's), LayerNorm computes in float32
+and returns its input's dtype, the attention scores and softmax are
+float32 (ops/attention.py), and the decode caches keep the compute dtype.
 """
 
 from __future__ import annotations
@@ -18,20 +24,65 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from svpc_torch.config import ModelConfig
 from svpc_torch.ops.attention import attention_plain, fused_attention
+from svpc_torch.precision import check_compute_dtype
 
 
 def erf_gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf-based) gelu, matching reference model.py:58-64."""
-    return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    """Exact (erf-based) gelu, matching reference model.py:58-64; computed
+    in float32 and rounded once to the input's dtype, as XLA fuses it."""
+    x32 = x.float()
+    return (x32 * 0.5 * (1.0 + torch.erf(x32 / math.sqrt(2.0)))).to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """``flax.linen.Dense(dtype=...)``: float32 parameters, the product in
+    ``compute_dtype`` when one is given, else in the input's dtype, with
+    input, weight and bias cast to it (in float32 this is ``nn.Linear``).
+    Under autograd the casts stay in the graph, so gradients reach the
+    float32 parameters in float32, as in JAX.
+
+    An eval-mode module outside autograd keeps its cast weight and bias:
+    an eager decode step would otherwise cast every weight again.  The
+    copy is keyed by the parameters' storage, dtype, device and version,
+    so a device move, a load or an in-place update rebuilds it."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = compute_dtype
+        self._cast = None
+
+    def _params_in(self, dtype: torch.dtype):
+        w, b = self.weight, self.bias
+        if self.training or torch.is_grad_enabled():
+            return w.to(dtype), (None if b is None else b.to(dtype))
+        key = (dtype,) + tuple(None if p is None else (
+            p.data_ptr(), p.dtype, p.device, p._version) for p in (w, b))
+        if self._cast is None or self._cast[0] != key:
+            self._cast = (key, w.detach().to(dtype),
+                          None if b is None else b.detach().to(dtype))
+        return self._cast[1], self._cast[2]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype or x.dtype
+        if dtype == self.weight.dtype:
+            return F.linear(x.to(dtype), self.weight, self.bias)
+        w, b = self._params_in(dtype)
+        return F.linear(x.to(dtype), w, b)
 
 
 class LayerNorm(nn.Module):
     """TF-style layernorm (eps inside the sqrt), reference model.py:143-156:
-    two-pass biased variance E[(x-u)^2]."""
+    two-pass biased variance E[(x-u)^2], computed in float32 and returned
+    in the input's dtype (svpc_tpu/model/layers.py:35-50).  A
+    ``residual`` is added to x in float32 first: svpc_tpu's residual add
+    and norm are one fused step."""
 
     def __init__(self, size: int, eps: float):
         super().__init__()
@@ -39,11 +90,14 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(size))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        u = x.mean(-1, keepdim=True)
-        d = x - u
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x32 = x.float() if residual is None else x.float() + residual
+        u = x32.mean(-1, keepdim=True)
+        d = x32 - u
         var = (d * d).mean(-1, keepdim=True)
-        return d * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        out = d * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return out.to(x.dtype)
 
 
 def _dropout(x: torch.Tensor, p: float, deterministic: bool,
@@ -58,16 +112,19 @@ def _dropout(x: torch.Tensor, p: float, deterministic: bool,
 class MultiHeadAttention(nn.Module):
     """QKV projections + attention; no output projection (reference
     BertSelfAttention, model.py:159-220).  ``project_q`` / ``project_kv``
-    / ``attend`` let cached decoding drive the pieces separately."""
+    / ``attend`` let cached decoding drive the pieces separately.  The
+    projections compute in the config's dtype whatever their input's
+    (svpc_tpu/model/layers.py:98-101)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
         self.dropout_p = cfg.attention_probs_dropout_prob
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        dt = check_compute_dtype(cfg)
+        self.query = Linear(h, h, compute_dtype=dt)
+        self.key = Linear(h, h, compute_dtype=dt)
+        self.value = Linear(h, h, compute_dtype=dt)
 
     def project_q(self, x):
         return self.query(x)
@@ -98,7 +155,7 @@ class SelfOutput(nn.Module):
 
     def __init__(self, cfg: ModelConfig, in_features: int):
         super().__init__()
-        self.dense = nn.Linear(in_features, cfg.hidden_size)
+        self.dense = Linear(in_features, cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.dropout_p = cfg.hidden_dropout_prob
 
@@ -106,7 +163,7 @@ class SelfOutput(nn.Module):
                 generator: Optional[torch.Generator] = None):
         h = _dropout(self.dense(hidden), self.dropout_p, deterministic,
                      generator)
-        return self.LayerNorm(h + residual)
+        return self.LayerNorm(h, residual)
 
 
 class AttentionBlock(nn.Module):
@@ -127,7 +184,7 @@ class Intermediate(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.dense = Linear(cfg.hidden_size, cfg.intermediate_size)
 
     def forward(self, x):
         return erf_gelu(self.dense(x))
@@ -191,11 +248,11 @@ class DecoderLayer(nn.Module):
         self_mask = dec_mask[:, None, :] * causal[None]  # (N, T, T) full
         attn = self.self_attention(dec, dec, dec, self_mask, deterministic,
                                    generator)
-        attn = self.norm1(attn + dec)
+        attn = self.norm1(attn, dec)
         cross = self.dec_enc_attention(attn, enc_out, enc_out,
                                        enc_mask[:, None, :], deterministic,
                                        generator)
-        cross = self.norm2(attn + cross)
+        cross = self.norm2(attn, cross)
         return self.output(cross, cross, deterministic, generator)
 
     def project_enc_kv(self, enc_out):
@@ -208,21 +265,23 @@ class DecoderLayer(nn.Module):
 
         x_t (N, 1, H); k_cache/v_cache (N, T, H) hold the projected
         self-attention keys/values of positions < t and are updated IN
-        PLACE at row t (the JAX package returns new arrays); slots beyond
-        t are masked out exactly.  Returns y_t (N, 1, H)."""
+        PLACE at row t (the JAX package returns new arrays), in their own
+        dtype, and are read in x_t's; slots beyond t are masked out
+        exactly.  Returns y_t (N, 1, H)."""
         n, T, _ = k_cache.shape
         k_t, v_t = self.self_attention.project_kv(x_t)
         k_cache[:, t:t + 1] = k_t
         v_cache[:, t:t + 1] = v_t
         q_t = self.self_attention.project_q(x_t)
         pos_ok = (torch.arange(T, device=x_t.device) <= t).to(x_t.dtype)
-        attn = self.self_attention.attend(q_t, k_cache, v_cache,
+        attn = self.self_attention.attend(q_t, k_cache.to(x_t.dtype),
+                                          v_cache.to(x_t.dtype),
                                           pos_ok.expand(n, 1, T))
-        attn = self.norm1(attn + x_t)
+        attn = self.norm1(attn, x_t)
         cross_q = self.dec_enc_attention.project_q(attn)
         cross = self.dec_enc_attention.attend(cross_q, enc_k, enc_v,
                                               enc_mask[:, None, :])
-        cross = self.norm2(attn + cross)
+        cross = self.norm2(attn, cross)
         return self.output(cross, cross, True)
 
 
@@ -256,7 +315,7 @@ class PredictionHeadTransform(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, x):
@@ -273,15 +332,16 @@ class LMPredictionHead(nn.Module):
         self.vocab_size = cfg.vocab_size
         self.transform = PredictionHeadTransform(cfg)
         if not cfg.share_wd_cls_weight:
-            self.decoder = nn.Linear(cfg.hidden_size, cfg.padded_vocab_size,
-                                     bias=False)
+            self.decoder = Linear(cfg.hidden_size, cfg.padded_vocab_size,
+                                  bias=False)
         self.bias = nn.Parameter(torch.zeros(cfg.padded_vocab_size))
 
     def forward(self, x, shared_embedding: Optional[torch.Tensor] = None):
         h = self.transform(x)
         if shared_embedding is not None:
-            logits = h @ shared_embedding.T
+            logits = h @ shared_embedding.T.to(h.dtype)
         else:
             logits = self.decoder(h)
-        # drop vocab-padding columns: everything downstream sees V logits
-        return (logits + self.bias)[..., :self.vocab_size]
+        # the bias in the logits' dtype; drop vocab-padding columns:
+        # everything downstream sees V logits
+        return (logits + self.bias.to(logits.dtype))[..., :self.vocab_size]

@@ -5,7 +5,9 @@ model.py:742-823).  Every parameterized projection depends only on the
 per-step vector, so all of them run batched over (B, S) outside the
 recurrence; the S-step loop (``lax.scan`` in the JAX package) carries only
 ``(entity_vectors, prev_attn)`` and is parameter-free.  Invalid entity
-slots are masked (probability 0).
+slots are masked (probability 0).  Every product runs in the dtype of
+``step_vectors`` (bfloat16 for the visual simulator under bfloat16
+compute, float32 for the textual re-simulator, which reads the BiLSTM).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from svpc_torch.config import ModelConfig
-from svpc_torch.model.layers import _dropout
+from svpc_torch.model.layers import Linear, _dropout
 
 
 class ReasonerOutputs(NamedTuple):
@@ -41,14 +43,14 @@ class EntityReasoner(nn.Module):
         self.dropout_p = cfg.reasoner_dropout_prob
         # reference indices: Linear 0, ReLU 1, Dropout 2, Linear 3
         self.action_selector = nn.Sequential(
-            nn.Linear(H, L), nn.ReLU(), nn.Dropout(cfg.reasoner_dropout_prob),
-            nn.Linear(L, A))
+            Linear(H, L), nn.ReLU(), nn.Dropout(cfg.reasoner_dropout_prob),
+            Linear(L, A))
         self.action_embeddings = nn.Parameter(
             torch.zeros(A, cfg.word_vec_size))
-        self.W1 = nn.Sequential(nn.Linear(H, L), nn.ReLU())
-        self.W2 = nn.Linear(L + A, L)
-        self.W3 = nn.Linear(L, 3)
-        self.W4 = nn.Linear(cfg.word_vec_size, 1)
+        self.W1 = nn.Sequential(Linear(H, L), nn.ReLU())
+        self.W2 = Linear(L + A, L)
+        self.W3 = Linear(L, 3)
+        self.W4 = Linear(cfg.word_vec_size, 1)
 
     def forward(self, step_vectors, entity_init, entity_mask,
                 deterministic: bool = True,
@@ -63,7 +65,7 @@ class EntityReasoner(nn.Module):
         h = _dropout(h, self.dropout_p, deterministic, generator)
         ac_probs = torch.sigmoid(self.action_selector[3](h))      # (B,S,A)
         bar_ft = (_safe_div(ac_probs, ac_probs.sum(-1, keepdim=True))
-                  @ self.action_embeddings)
+                  @ self.action_embeddings.to(step_vectors.dtype))
         # (2) entity selector precomputations (Eq.2-3)
         hat_ht = self.W1(step_vectors)
         w2_vec = self.W2(torch.cat([hat_ht, ac_probs], dim=-1))  # (B,S,H)
@@ -71,21 +73,28 @@ class EntityReasoner(nn.Module):
         # (3) updater gate (Eq.6)
         w4 = self.W4(bar_ft)                                      # (B,S,1)
 
-        emask = entity_mask.to(step_vectors.dtype)
+        dt = step_vectors.dtype
+        emask = entity_mask.to(dt)
         entities = entity_init * emask[..., None]
-        prev_attn = step_vectors.new_zeros(B, E)
+        # the recurrence's elementwise steps run in float32 and round to
+        # the compute dtype where svpc_tpu stores a value (the scan's
+        # carries and outputs, the products' operands and results), as
+        # XLA's fused bfloat16 arithmetic does; in float32 nothing changes
+        emask32, choice32, w4_32 = emask.float(), choice.float(), w4.float()
+        prev_attn = step_vectors.new_zeros(B, E).float()
         ent_probs, bar_ets, all_entities = [], [], []
         for s in range(S):
-            ent_prob = torch.sigmoid(torch.einsum(
-                "beh,bh->be", entities, w2_vec[:, s])) * emask
-            c = choice[:, s]
-            attn = c[:, 0:1] * ent_prob + c[:, 1:2] * prev_attn
+            p32 = torch.sigmoid(torch.einsum(
+                "beh,bh->be", entities, w2_vec[:, s]).float()) * emask32
+            c = choice32[:, s]
+            attn = c[:, 0:1] * p32 + c[:, 1:2] * prev_attn
             attn_norm = _safe_div(attn, attn.sum(-1, keepdim=True))
-            bar_et = torch.einsum("be,beh->bh", attn_norm, entities)
-            kt = torch.relu(w4[:, s] * bar_et)
+            bar_et = torch.einsum("be,beh->bh", attn_norm.to(dt), entities)
+            kt = torch.relu(w4_32[:, s] * bar_et.float())
             entities = (attn[..., None] * kt[:, None, :]
-                        + (1.0 - attn)[..., None] * entities)
-            prev_attn = ent_prob
+                        + (1.0 - attn)[..., None] * entities.float()).to(dt)
+            ent_prob = p32.to(dt)
+            prev_attn = ent_prob.float()
             ent_probs.append(ent_prob)
             bar_ets.append(bar_et)
             all_entities.append(entities)

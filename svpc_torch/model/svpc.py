@@ -11,6 +11,12 @@ passed to ``forward``.
 Batches are dicts of tensors in the JAX package's layouts: dense
 ``(B, S, ...)`` grids, or the packed per-clip layout of data/packing.py
 (``clip_*`` keys), which runs as a pseudo-batch of N clips with one step.
+
+Under ``compute_dtype="bfloat16"`` the parameters stay float32 and the
+activations are bfloat16 from the entry points on (the video features,
+the word vectors), with svpc_tpu's exceptions: the head's softmax, the
+copy network's mixture and everything downstream of it (losses, the
+textual re-simulator) are float32.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from svpc_torch.model.embeddings import (IngredientEmbeddings, TextEmbeddings,
                                          VideoEmbeddings,
                                          add_position_encoding, lookup,
                                          sinusoid_table)
-from svpc_torch.model.layers import Decoder, Encoder, LMPredictionHead
+from svpc_torch.model.layers import (Decoder, Encoder, Linear,
+                                     LMPredictionHead)
 from svpc_torch.model.lstm import BiLSTM
 from svpc_torch.model.pointer import pointer_generator
 from svpc_torch.model.reasoner import EntityReasoner, ReasonerOutputs
@@ -41,15 +48,25 @@ from svpc_torch.precision import check_compute_dtype
 NEG_INF = -1e30
 
 
-def to_tensors(batch: Dict[str, np.ndarray],
-               device: torch.device) -> Dict[str, torch.Tensor]:
-    """numpy batch -> tensors on ``device``: floats as float32, integers
-    as int64 (index dtype)."""
+FEATURE_KEYS = ("video_feature", "clip_video_feature")
+
+
+def to_tensors(batch: Dict[str, np.ndarray], device: torch.device,
+               feature_dtype: torch.dtype = torch.float32
+               ) -> Dict[str, torch.Tensor]:
+    """numpy batch -> tensors on ``device``: integers as int64 (index
+    dtype), floats as float32, and the video features then cast to
+    ``feature_dtype`` on ``device``.  svpc_tpu casts them on the host
+    before the copy (``cast_transform``), which halves the copied bytes in
+    bfloat16 but costs the host the cast; on the H100 neither order was
+    faster over 15 timed pairs of a served batch (PERF.md, bf16).  The
+    values are the same either way."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         t = t.long() if not t.is_floating_point() else t.float()
-        out[k] = t.to(device, non_blocking=True)
+        t = t.to(device, non_blocking=True)
+        out[k] = t.to(feature_dtype) if k in FEATURE_KEYS else t
     return out
 
 
@@ -125,7 +142,7 @@ class SVPCModel(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg.validate()
-        check_compute_dtype(cfg)
+        self.compute_dtype = dt = check_compute_dtype(cfg)
         self.cfg = cfg
         mode = cfg.model_mode
         if mode != "video":
@@ -144,15 +161,15 @@ class SVPCModel(nn.Module):
             persistent=False)
         if mode in ("full", "reason_copy"):
             self.reasoner = EntityReasoner(cfg)
-            self.Wac = nn.Sequential(nn.Linear(cfg.word_vec_size,
-                                               cfg.hidden_size))
-            self.Went = nn.Sequential(nn.Linear(cfg.hidden_size,
-                                                cfg.hidden_size))
+            self.Wac = nn.Sequential(Linear(cfg.word_vec_size,
+                                            cfg.hidden_size, compute_dtype=dt))
+            self.Went = nn.Sequential(Linear(cfg.hidden_size,
+                                             cfg.hidden_size, compute_dtype=dt))
         self.decoder = Decoder(cfg)
         self.decoder_classifier = LMPredictionHead(cfg)
         if mode != "video":
-            self.Wing = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-            self.pgen_linear = nn.Sequential(nn.Linear(2 * cfg.hidden_size, 1))
+            self.Wing = Linear(cfg.hidden_size, cfg.intermediate_size)
+            self.pgen_linear = nn.Sequential(Linear(2 * cfg.hidden_size, 1))
         if mode == "full":
             self.recipe_encoder = BiLSTM(cfg.word_vec_size, cfg.hidden_size)
             self.recipe_reasoner = EntityReasoner(cfg)
@@ -177,8 +194,9 @@ class SVPCModel(nn.Module):
         flat = lambda x: x.reshape((B * S,) + x.shape[2:])
         vid_ids = flat(batch["input_ids"][:, :, :Lv])
         emb = self.video_embeddings(
-            flat(batch["video_feature"][:, :, :Lv]), deterministic, generator)
-        emb = emb + lookup(self.token_type_embeddings, vid_ids)
+            flat(batch["video_feature"][:, :, :Lv]).to(self.compute_dtype),
+            deterministic, generator)
+        emb = emb + lookup(self.token_type_embeddings, vid_ids).to(emb.dtype)
         enc = self.encoder(emb, flat(batch["input_mask"][:, :, :Lv]), False,
                            deterministic, generator)
         return self._step_encode(enc[:, 0].reshape(B, S, -1),
@@ -192,10 +210,11 @@ class SVPCModel(nn.Module):
         N, L = batch["clip_input_ids"].shape
         Lv = L - self.cfg.max_t_len
         B, S = batch["step_mask"].shape
-        emb = self.video_embeddings(batch["clip_video_feature"][:, :Lv],
-                                    deterministic, generator)
+        emb = self.video_embeddings(
+            batch["clip_video_feature"][:, :Lv].to(self.compute_dtype),
+            deterministic, generator)
         emb = emb + lookup(self.token_type_embeddings,
-                           batch["clip_input_ids"][:, :Lv])
+                           batch["clip_input_ids"][:, :Lv]).to(emb.dtype)
         enc = self.encoder(emb, batch["clip_input_mask"][:, :Lv], False,
                            deterministic, generator)
         grid = scatter_clips(batch, enc[:, 0], (B, S))
@@ -220,7 +239,8 @@ class SVPCModel(nn.Module):
             ingr_vectors = self.ingredient_embeddings(
                 batch["ingr_ids"], batch["ingr_sep_mask"], deterministic,
                 generator)
-            ingr_vectors = ingr_vectors * batch["entity_mask"][..., None]
+            ingr_vectors = ingr_vectors * batch["entity_mask"][..., None] \
+                .to(ingr_vectors.dtype)
 
         if mode in ("full", "reason_copy"):
             reasoner_out = self.reasoner(step_vectors, ingr_vectors,
@@ -252,7 +272,8 @@ class SVPCModel(nn.Module):
         return EncodedState(
             step_vectors=step_vectors,
             ingr_vectors=(ingr_vectors if ingr_vectors is not None
-                          else step_vectors.new_zeros(B, cfg.max_entities, H)),
+                          else step_vectors.new_zeros(
+                              B, cfg.max_entities, H, dtype=torch.float32)),
             ga_inputs=ga_inputs,
             pointer_vectors=pointer_vectors,
             reasoner=reasoner_out)
@@ -310,15 +331,16 @@ class SVPCModel(nn.Module):
 
     def init_decode_caches(self, batch_shape: Tuple[int, int],
                            state: EncodedState):
-        """Per-layer zeroed self-attention (k, v) caches, and the
-        cross-attention K/V of the static encoder memory projected once.
-        Returns ``(self_caches, enc_kv)``."""
+        """Per-layer zeroed self-attention (k, v) caches in the compute
+        dtype, and the cross-attention K/V of the static encoder memory
+        projected once.  Returns ``(self_caches, enc_kv)``."""
         cfg = self.cfg
         B, S = batch_shape
         ref = state.ga_inputs
+        shape = (B * S, cfg.max_t_len, cfg.hidden_size)
         caches: List[Tuple[torch.Tensor, torch.Tensor]] = [
-            (ref.new_zeros(B * S, cfg.max_t_len, cfg.hidden_size),
-             ref.new_zeros(B * S, cfg.max_t_len, cfg.hidden_size))
+            (ref.new_zeros(shape, dtype=self.compute_dtype),
+             ref.new_zeros(shape, dtype=self.compute_dtype))
             for _ in range(cfg.num_hidden_layers)]
         M = ref.shape[2]
         return caches, self.decoder.project_enc_kv(ref.reshape(B * S, M, -1))

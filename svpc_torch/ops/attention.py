@@ -24,11 +24,16 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # kernel launches since the last reset_launches(); each wrapper adds one
-# where it launches its kernel and nowhere else
-# (the path counters split the first one by the path that ran)
+# where it launches its kernel and nowhere else (the path counters split
+# the first one by the path that ran, and the path-and-dtype counters
+# split those by the inputs' dtype)
 LAUNCHES = {"fused_attention": 0, "fused_attention.tile": 0,
-            "fused_attention.decode": 0}
+            "fused_attention.decode": 0,
+            **{f"fused_attention.{path}.{dt}": 0
+               for path in ("tile", "decode")
+               for dt in _DTYPE_NAMES.values()}}
 
 
 def reset_launches() -> None:
@@ -217,4 +222,5 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"heads={num_heads} {q.dtype} {plan})")
     LAUNCHES["fused_attention"] += 1
     LAUNCHES["fused_attention." + plan.path] += 1
+    LAUNCHES[f"fused_attention.{plan.path}.{_DTYPE_NAMES[q.dtype]}"] += 1
     return out

@@ -1,9 +1,15 @@
-"""Numerics policy and device choice.
+"""Numerics policy and device choice: the port of svpc_tpu/precision.py.
 
 ``compute_dtype == "float32"`` is the parity path: matrix products run in
 full float32, with TF32 off for both matmuls and cuDNN (the counterpart of
-svpc_tpu/precision.py's "highest" matmul precision).  ``bfloat16``
-compute is not ported yet (ROADMAP.md, Queue 1: "bf16 compute").
+svpc_tpu's "highest" matmul precision).  ``"bfloat16"`` is the fast path:
+parameters stay float32, activations are bfloat16 from the model's entry
+points on, and each product runs in the dtype svpc_tpu gives it (the
+modules cast explicitly; ``torch.autocast`` is not used, its operator
+lists are not svpc_tpu's map).  A bfloat16 product accumulates in float32,
+as the MXU and XLA's CPU dot do; the float32 products that remain in
+bfloat16 mode (the head's softmax input, the copy scatter, the textual
+re-simulator) keep TF32 off as on the parity path.
 """
 
 from __future__ import annotations
@@ -14,16 +20,20 @@ import torch
 
 from svpc_torch.config import ModelConfig
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-def check_compute_dtype(cfg: ModelConfig) -> None:
-    """Raise for anything but float32, and pin float32 matmuls to full
-    precision (TF32 off)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: bf16 compute); use float32")
+
+def check_compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The compute dtype of ``cfg`` (float32 or bfloat16; anything else
+    raises).  Pins float32 matmuls to full precision (TF32 off) and
+    bfloat16 matmuls to float32 accumulation, process-wide."""
+    if cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: use one of "
+                         f"{sorted(_DTYPES)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return _DTYPES[cfg.compute_dtype]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

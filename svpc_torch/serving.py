@@ -135,7 +135,9 @@ class CaptionService:
             raise _not_ported("feature upload serving (upload_dir)")
         if batch_videos < 1:
             raise ValueError(f"batch_videos must be >= 1, got {batch_videos}")
-        check_compute_dtype(cfg.model)
+        # the features go to the card in the compute dtype (svpc_tpu/
+        # serving.py:208, ``cast_transform``)
+        self.feature_dtype = check_compute_dtype(cfg.model)
         max_clips = max_clips or cfg.model.max_n_sen
         cfg = cfg.replace_train(val_batch_size=batch_videos)
         self.cfg = cfg
@@ -281,7 +283,7 @@ class CaptionService:
         or the ``(tokens (B, n, S, T), scores (B, n, S))`` pair under
         n_best > 1."""
         with self._lock:
-            b = to_tensors(batch, self.device)
+            b = to_tensors(batch, self.device, self.feature_dtype)
             if not self.beam_size:
                 return greedy_decode(self.model, b).cpu().numpy()
             out = beam_decode(self.model, b, beam_size=self.beam_size,

@@ -150,7 +150,8 @@ def make_eval_decoder(model, cfg: Config, dataset: CaptionDataset,
         decode = lambda b: greedy_decode(model, b)
     return dict(cfg=cfg, decode=decode,
                 builder=eval_packing_builder(cfg, dataset, bs),
-                device=next(model.parameters()).device)
+                device=next(model.parameters()).device,
+                feature_dtype=model.compute_dtype)
 
 
 def _decode_batches(dataset: CaptionDataset, decoder: dict,
@@ -162,7 +163,8 @@ def _decode_batches(dataset: CaptionDataset, decoder: dict,
             bs, builder=decoder["builder"])):
         if max_batches and j >= max_batches:
             return
-        yield decoder["decode"](to_tensors(batch, decoder["device"])), metas
+        yield decoder["decode"](to_tensors(batch, decoder["device"],
+                                          decoder["feature_dtype"])), metas
 
 
 def run_greedy_eval(model, dataset: CaptionDataset, cfg: Config,
@@ -391,7 +393,8 @@ def train(cfg: Config, workdir: str,
             for j, (batch, _) in enumerate(val_ds.batches(
                     cfg.train.val_batch_size, builder=val_builder)):
                 vmetrics.append(eval_step(
-                    eval_model, to_tensors(batch, device), cfg,
+                    eval_model, to_tensors(batch, device,
+                                           eval_model.compute_dtype), cfg,
                     step_generator(device, epoch)))
                 if max_steps_per_epoch and j + 1 >= max_steps_per_epoch:
                     break
@@ -474,7 +477,8 @@ def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,
         skip=skip)
     if max_steps:
         host_iter = itertools.islice(host_iter, max(0, max_steps - skip))
-    batch_iter = prefetch_to_device(host_iter, device, size=2)
+    batch_iter = prefetch_to_device(host_iter, device, size=2,
+                                    feature_dtype=state.model.compute_dtype)
     n_micro, group_loss = 0, 0.0
     epoch_steps = skip
     try:

@@ -1,7 +1,7 @@
 """Rules of the svpc_torch package: it imports none of JAX, flax, nltk,
 ml_dtypes or svpc_tpu (neither does chip_smoke.py), in its source and when
-every module is imported; asking for the card without one raises;
-bfloat16 compute is refused until it is ported."""
+every module is imported; asking for the card without one raises; the
+compute dtype is float32 or bfloat16."""
 
 import ast
 import os
@@ -79,9 +79,17 @@ def test_cuda_without_a_card_raises():
 
 
 def test_bfloat16_compute_is_refused():
+    """Only the two compute dtypes svpc_tpu has are accepted: float16 is
+    refused, bfloat16 builds (float32 parameters, bfloat16 projections)."""
     from svpc_torch.config import tiny_test_config
     from svpc_torch.model import SVPCModel
 
-    cfg = tiny_test_config("full").replace_model(compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        SVPCModel(cfg.model)
+    cfg = tiny_test_config("full")
+    with pytest.raises(ValueError, match="float16"):
+        SVPCModel(cfg.model.__class__(**{**cfg.model.__dict__,
+                                         "compute_dtype": "float16"}))
+    model = SVPCModel(cfg.replace_model(compute_dtype="bfloat16").model)
+    assert model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert model.encoder.layer[0].attention.self.query.compute_dtype \
+        == torch.bfloat16

@@ -179,3 +179,59 @@ def jax_compile(fn, *args):
     import jax
     return jax.jit(fn).lower(*args).compile(
         {"xla_backend_optimization_level": 0})
+
+
+# ---------------------------------------------------------------------- #
+# bfloat16 compute
+# ---------------------------------------------------------------------- #
+
+def bf16_pair(jcfg, cfg, model):
+    """(JAX config, port config, port model) at compute_dtype="bfloat16":
+    the same architecture and the port model's weights (float32)."""
+    from svpc_torch.model import SVPCModel
+
+    jcfg16 = jcfg.replace_model(compute_dtype="bfloat16")
+    cfg16 = cfg.replace_model(compute_dtype="bfloat16")
+    model16 = SVPCModel(cfg16.model).train(model.training)
+    model16.load_state_dict(model.state_dict(), strict=True)
+    return jcfg16, cfg16, model16
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_models(mode: str, seed: int = 0):
+    """(JAX config, JAX model, params, port config, port model) of
+    ``jax_model`` / ``port_model`` at compute_dtype="bfloat16"."""
+    from svpc_tpu.model import SVPCModel as JaxModel
+
+    jcfg, _, params = jax_model(mode, seed)
+    cfg, model = port_model(mode, seed)
+    jcfg16, cfg16, model16 = bf16_pair(jcfg, cfg, model)
+    return jcfg16, JaxModel(jcfg16.model), params, cfg16, model16
+
+
+def f32(x) -> np.ndarray:
+    """A port tensor or a JAX / numpy array (bfloat16 included) as a
+    float32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def band(jax16, jax32) -> float:
+    """The tolerance of every bfloat16 comparison: twice the JAX package's
+    own bfloat16 error on the same inputs, max |jax16 - jax32|, plus 1e-5.
+    Exact equality is out of reach: XLA keeps float32 between the
+    bfloat16 elementwise operations it fuses, torch rounds after each."""
+    return 2.0 * float(np.abs(f32(jax16) - f32(jax32)).max()) + 1e-5
+
+
+def assert_in_band(got16, jax16, jax32, what: str = "") -> float:
+    """max |got16 - jax16| <= band(jax16, jax32), the dtypes equal
+    (bfloat16 or float32); returns the error."""
+    want = np.asarray(jax16)
+    assert str(got16.dtype).split(".")[-1] == str(want.dtype), \
+        (what, got16.dtype, want.dtype)
+    err = float(np.abs(f32(got16) - f32(want)).max())
+    tol = band(jax16, jax32)
+    assert err <= tol, f"{what}: |port - jax| {err:.3e} > band {tol:.3e}"
+    return err

@@ -2,6 +2,7 @@
 """Where a served batch's time goes in svpc_torch, on one NVIDIA card.
 
     python3 tools/torch_serving_profile.py [--seed 0] [--reps 5]
+        [--compute_dtype float32|bfloat16]
 
 Builds the full-width vivt model (random weights from --seed) and the
 serving geometry of chip_smoke.py (batch_videos=8, max_clips=12, packed
@@ -51,6 +52,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
@@ -69,7 +72,7 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="profile_",
                                      dir=os.path.join(root, "build")) as w:
-        cfg = Config()
+        cfg = Config().replace_model(compute_dtype=args.compute_dtype)
         fx = write_serving_fixture(w, cfg, n_videos=8, min_clips=12,
                                    max_clips=12, seed=args.seed)
         cfg = cfg.replace_data(**{k: fx[k] for k in (
@@ -86,7 +89,7 @@ def main(argv=None) -> int:
             batch = svc.build_batch(examples)
             out["host_batch_build"] = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
-            b = to_tensors(batch, svc.device)
+            b = to_tensors(batch, svc.device, svc.feature_dtype)
             out["host_to_device"] = _sync_ms(t0)
             with torch.no_grad():
                 t0 = time.perf_counter()
@@ -102,7 +105,8 @@ def main(argv=None) -> int:
             return out
 
         def decode_whole():
-            b = to_tensors(svc.build_batch(examples), svc.device)
+            b = to_tensors(svc.build_batch(examples), svc.device,
+                           svc.feature_dtype)
             return greedy_decode(svc.model, b).cpu()
 
         decode_whole()  # warm
@@ -142,7 +146,8 @@ def main(argv=None) -> int:
         for name, lk in (("decoder_self_cached", m.max_t_len),
                          ("decoder_cross_cached", 3)):
             q, k, v = (torch.randn(96, length, m.hidden_size, generator=gen)
-                       .to(svc.device) for length in (1, lk, lk))
+                       .to(svc.device, svc.feature_dtype)
+                       for length in (1, lk, lk))
             mask = torch.ones(96, 1, lk, device=svc.device)
             rounds = []
             for _ in range(5):
@@ -155,6 +160,7 @@ def main(argv=None) -> int:
             wrapper_us[name] = {"min": min(rounds), "rounds": rounds}
         print(json.dumps({
             "card": torch.cuda.get_device_name(0),
+            "compute_dtype": args.compute_dtype,
             "geometry": {"batch_videos": 8, "max_clips": 12,
                          "packed_clips": 96, "v_len": cfg.model.max_v_len,
                          "max_t_len": cfg.model.max_t_len},
