@@ -104,6 +104,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
            caption carries two ranked nbest entries, /v1/stats names the
            decoder, and the sentences equal cli.caption --use_beam's on
            the same spec.
+  native   (after parity) the native C++ feature packer (built with g++
+           in the build phase, beside nvcc) against the numpy fill on one
+           served batch of the serve fixture (CaptionService.build_batch,
+           8 videos): byte-equal batches for the float32 store and for
+           its cli.convert_features float16 copy, the pipeline's fill
+           counter naming the route; the host batch build timed natively
+           and with numpy, 5 alternating runs each.  The serve phases fail
+           unless that counter shows every served video filled natively.
+  serve_upload
+           (after serve_bf16) cli.serve --upload_dir on the serve
+           fixture's checkpoint: 12 concurrent CaptionClient requests for
+           the disk-staged videos, then 12 uploading the same features
+           inline under new ids: equal captions, both kernel paths,
+           native fills; client latency p50/p90 and upload MB/s.
+  export   cli.export_checkpoint --ema of the train phase's checkpoint to
+           a reference .chkpt: cli.caption on it (--torch_checkpoint) and
+           on the trainer checkpoint give the same sentences.
+  dump_memories
+           cli.dump_memories on the train phase's checkpoint over the val
+           split on the card (pickle keys, finite), every attention form
+           of that run (encoders, the full causal decoder, at the CLI's
+           own batch of 16 videos) held against attention_plain (f32
+           1e-5) and timed beside plain, SDPA and the bound; one 4-video
+           batch on the card and on the CPU with the same Gumbel noise
+           (entity and action probabilities, the re-simulator's too,
+           within 1e-4); cli.validate_data clean on the fixture's three
+           splits.
 
 The line before the last is {"kernels": [...]}, preceded by the card's
 name and power limit as nvidia-smi reports them; the last line is
@@ -249,14 +276,24 @@ def ptxas_report(log: str) -> dict:
 
 
 def phase_build():
+    """nvcc for every CUDA source and g++ for the native feature packer,
+    all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from svpc_torch import native
     from svpc_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        packer = pool.submit(native.get_lib)
+        _build.build_all()
+        packer.result()
     report = {name: ptxas_report(log)
               for name, log in _build.build_log.items()}
     emit({"phase": "build", "ok": True,
           "wall_s": time.perf_counter() - t0,
           "nvcc_s": dict(_build.build_seconds), "ptxas": report,
+          "gxx_packer_s": native.build_seconds,
+          "packer": os.path.relpath(native.library_path()),
           "card": card_line()})
 
 
@@ -440,6 +477,7 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
     bfloat16 (phase serve_bf16)."""
     from svpc_torch.cli.serve import build_service, start_server, stop_server
     from svpc_torch.config import Config
+    from svpc_torch.data import pipeline
     from svpc_torch.data.synthetic import write_serving_fixture
     from svpc_torch.model import SVPCModel
     from svpc_torch.model.from_jax import save_reference_checkpoint
@@ -480,6 +518,7 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
         threads = [threading.Thread(target=ask, args=(v,)) for v in specs]
         torch.cuda.synchronize()
         reset_launches()
+        pipeline.reset_fills()
         t1 = time.perf_counter()
         for t in threads:
             t.start()
@@ -487,12 +526,17 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
             t.join(600)
         wall = time.perf_counter() - t1
         launches = dict(LAUNCHES)
+        fills = dict(pipeline.FILLS)
         stats = _get(base + "/v1/stats")
         health = _get(base + "/healthz")
     finally:
         stop_server(server)
     if errors or any(t.is_alive() for t in threads):
         fail(phase, f"requests failed: {errors}")
+    # every video's features went through the native packer
+    if fills != {"native": len(specs)}:
+        fail(phase, f"videos filled by route {fills}, want all "
+                    f"{len(specs)} native")
     for vid, (code, resp) in results.items():
         caps = resp.get("captions", [])
         if code != 200 or len(caps) != len(specs[vid]["timestamps"]) or \
@@ -514,7 +558,7 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
           "clips_per_s": n_clips / wall, "batches": batches,
           "mean_batch_videos": stats["mean_batch_videos"],
           "latency_ms": stats["latency_ms"], "batch_ms": stats["batch_ms"],
-          "launches": launches,
+          "launches": launches, "feature_fills": fills,
           "launches_per_batch": launches["fused_attention"] / batches})
     return service, fx, ckpt, launches
 
@@ -1678,6 +1722,316 @@ def phase_serve_beam(fx, train_dir):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# native packer, uploads, export, dump_memories
+# ---------------------------------------------------------------------- #
+
+def _spread(xs) -> dict:
+    xs = sorted(xs)
+    return {"min": xs[0], "median": xs[len(xs) // 2], "max": xs[-1],
+            "all": xs}
+
+
+def phase_native(service, fx, workdir, reps: int = 5):
+    """The native packer against the numpy fill on one served batch of the
+    serve fixture (8 videos, ``CaptionService.build_batch``): byte-equal
+    batches for the float32 store and for its convert_features float16
+    copy, the pipeline's fill counter naming the route, and the host batch
+    build timed natively and with numpy, ``reps`` alternating runs each."""
+    from svpc_torch import native
+    from svpc_torch.cli.convert_features import convert_tree
+    from svpc_torch.data import pipeline
+    from svpc_torch.data.pipeline import CaptionDataset
+
+    t0 = time.perf_counter()
+    f16_dir = os.path.join(workdir, "features_f16")
+    n_files = convert_tree(fx["video_feature_dir"], f16_dir)
+    convert_s = time.perf_counter() - t0
+    entries = [service.make_entry(v, s)
+               for v, s in list(fx["specs"].items())[:service.batch_videos]]
+
+    def examples(feat_dir, use_native):
+        ds = CaptionDataset(
+            service.cfg.replace_data(video_feature_dir=feat_dir), "infer",
+            num_steps=service.max_clips, entries=[], lazy_features=True,
+            use_native=use_native)
+        return [ds.make_example(e) for e in entries]
+
+    sets = {(store, route): examples(d, route == "native")
+            for store, d in (("f32", fx["video_feature_dir"]),
+                             ("f16", f16_dir))
+            for route in ("native", "numpy")}
+    bad, fills, batches = [], {}, {}
+    for store in ("f32", "f16"):
+        got = batches[store] = {}
+        for route in ("native", "numpy"):
+            pipeline.reset_fills()
+            got[route] = service.build_batch(sets[store, route])
+            fills[f"{store}.{route}"] = dict(pipeline.FILLS)
+            if fills[f"{store}.{route}"] != {route: len(entries)}:
+                bad.append(f"{store} {route}: fills "
+                           f"{fills[f'{store}.{route}']}")
+        for k, v in got["numpy"].items():
+            if v.tobytes() != got["native"][k].tobytes():
+                bad.append(f"{store}: {k} differs between the native and "
+                           "the numpy fill")
+    times = {"native": [], "numpy": []}
+    for _ in range(reps):
+        for route in ("native", "numpy"):
+            t1 = time.perf_counter()
+            service.build_batch(sets["f32", route])
+            times[route].append((time.perf_counter() - t1) * 1e3)
+    batch = batches["f32"]["native"]
+    row = {"phase": "native", "gxx_packer_s": native.build_seconds,
+           "packer": os.path.relpath(native.library_path()),
+           "videos": len(entries),
+           "clips": int(batch["clip_mask"].sum()),
+           "packed_clips": len(batch["clip_mask"]),
+           "feature_bytes": int(batch["clip_video_feature"].nbytes),
+           "f16_files": n_files, "convert_s": convert_s, "fills": fills,
+           "host_batch_build_ms": {r: _spread(t) for r, t in times.items()},
+           "card": card_line()}
+    if bad:
+        fail("native", f"{bad}: {json.dumps(row)}")
+    emit(dict(row, ok=True))
+
+
+def _durations(fx) -> dict:
+    with open(fx["duration_file"]) as f:
+        rows = [ln.strip().split(",") for ln in f if ln.strip()]
+    return {r[0]: (float(r[1]), float(r[2])) for r in rows}
+
+
+def phase_serve_upload(fx, ckpt, workdir):
+    """cli.serve --upload_dir on the serve fixture's checkpoint: 12
+    concurrent CaptionClient requests for the disk-staged videos, then 12
+    that upload the same videos' features inline under new ids (the main
+    path, counted); every uploaded caption equals the disk-staged one,
+    both kernel paths launch, every upload is filled natively."""
+    import numpy as np
+
+    from svpc_torch.cli.serve import build_service, start_server, stop_server
+    from svpc_torch.client import CaptionClient
+    from svpc_torch.data import pipeline
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    spool = os.path.join(workdir, "spool")
+    argv = ["--model_type", "vivt", "--torch_checkpoint",
+            "--checkpoint", ckpt,
+            "--word2idx_path", fx["word2idx_path"],
+            "--verb2idx_path", fx["verb2idx_path"],
+            "--video_feature_dir", fx["video_feature_dir"],
+            "--duration_file", fx["duration_file"],
+            "--batch_videos", "8", "--max_clips", "12",
+            "--upload_dir", spool]
+    service, _ = build_service(argv)
+    server = start_server(service, "127.0.0.1", 0, max_wait_ms=100.0)
+    client = CaptionClient(f"http://127.0.0.1:{server.server_address[1]}",
+                           timeout=300)
+    specs, durations = fx["specs"], _durations(fx)
+    features = {v: {k: np.load(os.path.join(fx["video_feature_dir"],
+                                            f"{v}_{k}.npy"))
+                    for k in ("resnet", "bn")} for v in specs}
+    setup_s = time.perf_counter() - t0
+
+    def burst(upload):
+        results, errors, latency = {}, [], []
+
+        def ask(vid):
+            kw = {}
+            if upload:
+                kw = dict(features[vid], duration=durations[vid][0],
+                          n_frames=durations[vid][1])
+            t1 = time.perf_counter()
+            try:
+                results[vid] = client.caption(
+                    ("up_" if upload else "") + vid,
+                    specs[vid]["timestamps"], specs[vid]["ingredients"],
+                    **kw)
+                latency.append((time.perf_counter() - t1) * 1e3)
+            except Exception as e:  # reported below, fails the phase
+                errors.append(f"{vid}: {e!r}")
+
+        threads = [threading.Thread(target=ask, args=(v,)) for v in specs]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if errors or any(t.is_alive() for t in threads):
+            fail("serve_upload", f"requests failed: {errors}")
+        return results, time.perf_counter() - t1, latency
+
+    try:
+        disk, _, _ = burst(False)
+        torch.cuda.synchronize()
+        reset_launches()
+        pipeline.reset_fills()
+        up, wall, latency = burst(True)
+        launches = dict(LAUNCHES)
+        fills = dict(pipeline.FILLS)
+        stats = client.stats()
+    finally:
+        stop_server(server)
+    bad = [vid for vid in specs
+           if [c["sentence"] for c in up[vid]["captions"]]
+           != [c["sentence"] for c in disk[vid]["captions"]]
+           or len(up[vid]["captions"]) != len(specs[vid]["timestamps"])]
+    upload_mb = sum(a.nbytes for f in features.values()
+                    for a in f.values()) / 1e6
+    lat = sorted(latency)
+    row = {"phase": "serve_upload", "setup_s": setup_s,
+           "requests": len(up), "clips": sum(
+               len(s["timestamps"]) for s in specs.values()),
+           "wall_s": wall, "upload_mb": upload_mb,
+           "upload_mb_per_s": upload_mb / wall,
+           "client_latency_ms": {"p50": lat[len(lat) // 2],
+                                 "p90": lat[min(len(lat) - 1,
+                                                int(0.9 * len(lat)))]},
+           "daemon_stats": stats, "launches": launches,
+           "feature_fills": fills, "captions_differing": bad,
+           "card": card_line()}
+    row["clips_per_s"] = row["clips"] / wall
+    if bad:
+        fail("serve_upload", f"uploaded captions differ from the disk-"
+                             f"staged ones: {json.dumps(row)}")
+    if fills != {"native": len(specs)}:
+        fail("serve_upload", f"videos filled by route {fills}")
+    _dtype_check("serve_upload", launches, "f32")
+    emit(dict(row, ok=True))
+    return launches
+
+
+def _test_spec(fx, workdir) -> str:
+    from svpc_torch.data.anet import SPLIT_FILES
+
+    with open(os.path.join(fx["data_dir"], SPLIT_FILES["test"])) as f:
+        specs = {vid: {"timestamps": a["timestamps"],
+                       "ingredients": a["ingredients"]}
+                 for vid, a in json.load(f).items()}
+    path = os.path.join(workdir, "test_spec.json")
+    with open(path, "w") as f:
+        json.dump(specs, f)
+    return path
+
+
+def phase_export(fx, train_dir):
+    """cli.export_checkpoint --ema of the train phase's checkpoint to a
+    reference .chkpt; cli.caption on the .chkpt (--torch_checkpoint) and on
+    the trainer checkpoint give the same sentences on the test split."""
+    from svpc_torch.cli import caption, export_checkpoint
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+
+    ckpt = _checkpoint(train_dir)
+    spec = _test_spec(fx, train_dir)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = export_checkpoint.main(_fixture_argv(fx) + [
+        "--checkpoint", ckpt, "--out",
+        os.path.join(train_dir, "exported.chkpt"), "--ema"])
+    export_s = time.perf_counter() - t0
+    runs = {}
+    for name, flags in (("trainer", ["--checkpoint", ckpt]),
+                        ("chkpt", ["--checkpoint", out,
+                                   "--torch_checkpoint"])):
+        runs[name] = caption.main(_fixture_argv(fx) + flags + [
+            "--input_json", spec, "--val_batch_size", "16",
+            "--output", os.path.join(train_dir, f"captions_{name}.json")])
+    launches = dict(LAUNCHES)
+    sents = {k: {v: [c["sentence"] for c in clips]
+                 for v, clips in r.items()} for k, r in runs.items()}
+    bad = [v for v in sents["trainer"]
+           if sents["trainer"][v] != sents["chkpt"].get(v)]
+    row = {"phase": "export", "checkpoint": os.path.basename(ckpt),
+           "export_s": export_s, "chkpt_bytes": os.path.getsize(out),
+           "videos": len(sents["trainer"]), "differing": bad,
+           "empty": sum(not s.strip() for v in sents["chkpt"].values()
+                        for s in v),
+           "launches": launches}
+    if bad or not sents["trainer"]:
+        fail("export", f"the .chkpt captions differently: {json.dumps(row)}")
+    emit(dict(row, ok=True))
+    return launches
+
+
+def phase_dump_memories(fx, train_dir, seed):
+    """cli.dump_memories on the train phase's checkpoint over the val
+    split, on the card (the main path, counted), with every attention form
+    of that run recorded at the CLI's own batch and held against
+    attention_plain (f32 1e-5) and timed; one 4-video val batch's dump on
+    the card and on the CPU with the same Gumbel noise (every probability
+    within 1e-4); cli.validate_data clean on the fixture's three
+    splits."""
+    import pickle
+
+    import numpy as np
+
+    from svpc_torch.cli import dump_memories as dm
+    from svpc_torch.cli.validate_data import main as validate
+    from svpc_torch.config import Config
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+    from svpc_torch.train.state import load_eval_weights
+
+    ckpt = _checkpoint(train_dir)
+    out_dir = os.path.join(train_dir, "memories")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _AttentionRecorder() as rec:
+        rec.stage = "dump_memories"
+        path = dm.main(_fixture_argv(fx) + [
+            "--checkpoint", ckpt, "--split", "val", "--output_dir", out_dir,
+            "--val_batch_size", "16"])
+    dump_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    with open(path, "rb") as f:
+        dump = pickle.load(f)
+    keys = {"entity_probs", "action_probs", "entity_vectors",
+            "re_pred_entity_probs", "re_pred_action_probs",
+            "re_entity_vectors"}
+    bad = [v for v, e in dump.items() if set(e) != keys or not all(
+        np.isfinite(x).all() for k, x in e.items() if k != "entity_vectors")]
+
+    cfg = Config.from_json(ckpt + ".cfg.json").replace_train(
+        val_batch_size=4)
+    weights = load_eval_weights(ckpt)
+    ds = CaptionDataset(cfg, "val", lazy_features=True)
+    got = {}
+    with _SharedGumbel(seed):
+        for dev in ("cuda", "cpu"):
+            model = SVPCModel(cfg.model).to(dev).eval()
+            model.load_state_dict({n: w.to(dev) for n, w in weights.items()},
+                                  strict=True)
+            got[dev] = dm.dump_memories(model, ds, cfg, max_batches=1)
+    diffs = {}
+    for k in ("entity_probs", "action_probs", "re_pred_entity_probs",
+              "re_pred_action_probs"):
+        diffs[k] = max(float(np.abs(got["cuda"][v][k] - e[k]).max(initial=0))
+                       for v, e in got["cpu"].items())
+    rows, kernel_bad = _form_rows(rec.calls)
+    clean = {}
+    for split in ("train", "val", "test"):
+        try:
+            validate(_fixture_argv(fx) + ["--split", split])
+            clean[split] = True
+        except SystemExit as e:
+            clean[split] = e.code in (0, None)
+    row = {"phase": "dump_memories", "dump_s": dump_s,
+           "recipes": len(dump), "bad_recipes": bad,
+           "launches": launches, "card_vs_cpu_max_abs": diffs, "tol": 1e-4,
+           "forms": rows, "validate_data_clean": clean, "card": card_line()}
+    if bad or len(dump) != len(ds) or \
+            max(diffs.values()) > 1e-4 or kernel_bad or \
+            not all(clean.values()) or not launches["fused_attention.tile"]:
+        fail("dump_memories", f"{bad} {kernel_bad}: {json.dumps(row)}")
+    emit(dict(row, ok=True))
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1701,10 +2055,12 @@ def main(argv=None) -> int:
         phases = {}
         service, fx, ckpt, phases["serve"] = phase_serve(args.seed, workdir)
         phase_parity(service, fx, ckpt)
+        phase_native(service, fx, workdir)
         service16, _, _, phases["serve_bf16"] = phase_serve(
             args.seed, workdir, "bfloat16", fx, ckpt)
         phase_parity_bf16(service16, fx, ckpt)
         del service, service16
+        phases["serve_upload"] = phase_serve_upload(fx, ckpt, workdir)
         phases["train"], train_fx, _, train_dir = phase_train(args.seed,
                                                                workdir)
         phases["train_bf16"], train_dir16 = phase_train_bf16(
@@ -1713,6 +2069,9 @@ def main(argv=None) -> int:
         phases["evaluate_bf16"] = phase_evaluate_bf16(train_fx, train_dir,
                                                       train_dir16)
         phases["serve_beam"] = phase_serve_beam(train_fx, train_dir)
+        phases["export"] = phase_export(train_fx, train_dir)
+        phases["dump_memories"] = phase_dump_memories(train_fx, train_dir,
+                                                      args.seed)
     print(card_line(), flush=True)
     emit({"kernels": kernel_summary(rows, phases)})
     emit({"ok": True, "device": {"platform": "gpu",

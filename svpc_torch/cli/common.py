@@ -118,6 +118,10 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint_every_steps", type=int, default=0,
                    help="also save checkpoint_last every N optimizer steps "
                         "(mid-epoch resume; 0 = per epoch)")
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="threads for the native feature fill (the fill "
+                        "releases the GIL; the reference's flag is the "
+                        "triple-dashed '---num_workers', train.py:554)")
     p.add_argument("--debug", action="store_true",
                    help="one step per epoch")
 
@@ -143,7 +147,8 @@ def train_config_from_args(args) -> Config:
         share_wd_cls_weight=args.share_wd_cls_weight,
         use_asl=args.use_asl == "asl")
     cfg = cfg.replace_data(glove_path=args.glove_path,
-                           verb_glove_path=args.verb_glove_path)
+                           verb_glove_path=args.verb_glove_path,
+                           num_workers=args.num_workers)
     cfg = cfg.replace_train(
         batch_size=args.batch_size, val_batch_size=args.val_batch_size,
         n_epoch=args.n_epoch, max_es_cnt=args.max_es_cnt,

@@ -25,7 +25,11 @@ API (JSON over HTTP):
       (features are read from --video_feature_dir/<vid>_{resnet,bn}.npy;
        the duration CSV must carry a row per video; with --use_beam
        --n_best N each caption also carries "nbest": ranked
-       [{"sentence", "score"}, ...])
+       [{"sentence", "score"}, ...]; with --upload_dir a request may
+       carry the features inline instead: "features": {"resnet": <base64
+       .npy>, "bn": <base64 .npy>} plus the video's "duration" (s) and
+       "n_frames", spooled as float32 files; svpc_torch.client.
+       CaptionClient sends them)
   GET /healthz     -> {"status": "ok", ...model/serving geometry...}
   GET /v1/stats    -> request/batch counters + latency quantiles, and the
                       decoder ("greedy" or "beam{K}") with its n_best
@@ -60,7 +64,6 @@ class CaptionHandler(BaseHTTPRequestHandler):
     # bounds a silent/stalled client: no single socket read or write can
     # block a handler (or a drain) for more than this
     timeout = 30
-    max_request_bytes = 1 << 20
 
     def log_message(self, fmt, *fmt_args):  # route to logging, not stderr
         logger.debug("%s - %s", self.address_string(), fmt % fmt_args)
@@ -130,11 +133,11 @@ class CaptionHandler(BaseHTTPRequestHandler):
             length = int(self.headers.get("Content-Length", 0) or 0)
         except ValueError:
             length = -1
-        if not 0 <= length <= self.max_request_bytes:
+        if not 0 <= length <= srv.max_request_bytes:
             self.close_connection = True
             srv.batcher.stats.record_error()
             self._reply(400, {"error": "bad Content-Length header "
-                                       f"(0..{self.max_request_bytes})"})
+                                       f"(0..{srv.max_request_bytes})"})
             return
         body = self.rfile.read(length)
         if self.path != "/v1/captions":
@@ -186,6 +189,11 @@ class CaptionHTTPServer(ThreadingHTTPServer):
                  batcher: DynamicBatcher, request_timeout: float = 60.0):
         super().__init__(addr, CaptionHandler)
         self.service = service
+        # feature uploads are the big payloads (a 2h video's f32 resnet+bn
+        # pair is ~180 MB, ~240 MB base64'd); a daemon that takes none
+        # keeps the 1 MiB bound of a disk-only request
+        self.max_request_bytes = (1 << 30 if service.up_ds is not None
+                                  else 1 << 20)
         self.batcher = batcher
         self.request_timeout = request_timeout
         self.draining = threading.Event()
@@ -253,6 +261,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="comma-separated packed clip budgets below the "
                         "worst case (e.g. 16,32): light batches ride a "
                         "smaller shape")
+    p.add_argument("--upload_dir", default="",
+                   help="enable inline feature upload: requests may carry "
+                        "base64 .npy 'features' (+ duration/n_frames) "
+                        "spooled into this directory")
     p.add_argument("--request_timeout", type=float, default=60.0)
     p.add_argument("--use_beam", action="store_true")
     p.add_argument("--beam_size", type=int, default=2)
@@ -281,7 +293,9 @@ def build_service(argv=None):
                              max_clips=args.max_clips or None,
                              beam_size=args.beam_size if args.use_beam else 0,
                              n_best=args.n_best if args.use_beam else 1,
-                             clip_buckets=buckets, device=args.device)
+                             clip_buckets=buckets,
+                             upload_dir=args.upload_dir or None,
+                             device=args.device)
     return service, args
 
 

@@ -4,8 +4,8 @@ The reference loads ``{vid}_resnet.npy`` + ``{vid}_bn.npy`` per example from
 disk inside ``__getitem__`` with no caching
 (reference: recursive_caption_dataset.py:187-189).  Here feature IO is a
 separate layer so the hot path (load → concat → span-index → downsample →
-pad) stays in one place.  The port fills features with numpy only; the
-native C++ packer of svpc_tpu is a later slice.
+pad) stays in one place.  The hot path is the native C++ packer
+(svpc_torch/native); the numpy fill below is its plain version.
 """
 
 from __future__ import annotations
@@ -59,10 +59,14 @@ class FeatureStore:
 
     def invalidate(self) -> None:
         """Drop every python-side cache (loaded arrays + header row
-        counts).  Call after replacing feature files on disk — otherwise
-        stale row counts could disagree with what the fill re-reads."""
+        counts) AND the native packer's persistent mmaps.  Call after
+        replacing feature files on disk — otherwise stale row counts
+        could disagree with what the native fill re-reads (the packer
+        also hard-bounds its writes and errors on such a mismatch)."""
         self._cache.clear()
         self._rows.clear()
+        from svpc_torch.native import mmap_cache_clear
+        mmap_cache_clear()
 
     def rows(self, video_name: str) -> int:
         """Feature row count from the .npy header alone (no data IO) —
@@ -85,7 +89,7 @@ def clip_valid_length(feat_len: int, timestamp, frm2sec: float,
 
 def fill_clip_features(raw_feat: np.ndarray, timestamps, frm2sec: float,
                        max_v_len: int, out: np.ndarray) -> None:
-    """Numpy into-buffer fill: write each clip's
+    """Numpy version of the native into-buffer fill: write each clip's
     rows into ``out[c, 1:valid+1]`` (out: (n_clips, total_len, D), zeroed;
     total_len may be smaller than max_v_len when the batch's span bucket
     is)."""

@@ -142,11 +142,14 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
                   v_len: Optional[int] = None,
                   clip_multiple: int = 16,
                   v_multiple: int = 16,
-                  dp_shards: int = 1) -> Batch:
+                  dp_shards: int = 1,
+                  fill_workers: int = 0) -> Batch:
     """Examples -> packed batch directly, skipping the dense (B, S, ...)
     intermediate: per-video arrays stack (small), per-clip rows copy
     straight from each example into the final buffers.  Geometry and
-    semantics are identical to pack_batch."""
+    semantics are identical to pack_batch.  ``fill_workers > 1`` fills the
+    videos' features on that many threads (the native fill releases the
+    GIL)."""
     B = batch_size or len(examples)
     if B % dp_shards:
         raise ValueError(f"batch {B} not divisible by dp_shards={dp_shards}")
@@ -204,6 +207,7 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
     clip_arrays["video_feature"] = np.zeros((total, v_len) + feat_shape,
                                             np.float32)
 
+    fill_jobs = []
     for b, (e, n) in enumerate(zip(examples, steps)):
         if not n:
             continue
@@ -219,15 +223,25 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
             clip_arrays[k][lo:lo + n, v_len:] = arrs[k][:n, Lv:]
         if lazy:
             # the lazy pipeline's one feature copy: straight into the
-            # packed batch buffer
+            # packed batch buffer (native packer: mmap -> buffer)
             ref = e.meta["feature_ref"]
             if int(ref["valid"].max(initial=0)) + 2 > v_len:
-                raise ValueError(
+                raise ValueError(  # hard bound: the native fill writes
                     f"{ref['name']}: clip span exceeds v_len={v_len}")
-            fill_features_from_ref(ref, clip_arrays["video_feature"][lo:lo + n])
+            fill_jobs.append((ref, clip_arrays["video_feature"][lo:lo + n]))
         else:
             clip_arrays["video_feature"][lo:lo + n] = \
                 arrs["video_feature"][:n, :v_len]
+
+    if fill_workers > 1 and len(fill_jobs) > 1:
+        # the native fill releases the GIL (ctypes), so threads give real
+        # parallelism on multi-core hosts
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(fill_workers) as pool:
+            list(pool.map(lambda j: fill_features_from_ref(*j), fill_jobs))
+    else:
+        for job in fill_jobs:
+            fill_features_from_ref(*job)
 
     for k, v in clip_arrays.items():
         out[f"clip_{k}"] = v

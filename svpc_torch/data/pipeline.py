@@ -7,8 +7,10 @@ The model then loops over examples in Python (model.py:1059).
 
 Every video becomes one fixed-shape example ``(S, L, ...)`` with validity
 masks; a batch is a plain stack.  Everything downstream (model, decode) is
-mask-driven.  This is the port's copy of svpc_tpu/data/pipeline.py: the
-numpy feature fill only (the native C++ packer is a later slice).
+mask-driven.  This is the port's copy of svpc_tpu/data/pipeline.py.  The
+feature bytes come from the native C++ packer (``svpc_torch/native``:
+mmap -> batch buffer) unless ``use_native=False`` asks for the numpy fill;
+``FILLS`` counts the videos each filled.
 
 Shapes (per example):
   input_ids       (S, L)  int32     L = max_v_len + max_t_len
@@ -34,9 +36,11 @@ Shapes (per example):
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,6 +51,22 @@ from svpc_torch import tokenization as tok
 from svpc_torch.config import Config
 from svpc_torch.data.anet import load_annotations, load_durations
 from svpc_torch.data.features import FeatureStore, index_clip_features
+
+# videos whose features were filled, by route ("native" / "numpy"): read by
+# chip_smoke.py, which must see every served batch filled natively
+FILLS: collections.Counter = collections.Counter()
+_fills_lock = threading.Lock()
+
+
+def _count_fill(route: str) -> None:
+    with _fills_lock:
+        FILLS[route] += 1
+
+
+def reset_fills() -> None:
+    with _fills_lock:
+        FILLS.clear()
+
 
 ARRAY_KEYS = (
     "input_ids", "input_mask", "input_labels", "token_type_ids",
@@ -243,12 +263,16 @@ class CaptionDataset:
     def __init__(self, cfg: Config, split: str, num_steps: Optional[int] = None,
                  feature_store: Optional[FeatureStore] = None,
                  entries: Optional[List[dict]] = None,
+                 use_native: bool = True,
                  lazy_features: bool = False):
+        # use_native: the C++ packer fills the feature bytes (a failed
+        # build or an unreadable file raises); False asks for numpy.
         # lazy_features: examples carry a feature *reference* (paths +
         # clip spans, valid lengths from the .npy header) instead of the
         # materialized (S, Lv, D) array; batch builders fill the final
-        # batch buffer directly.  The eager default keeps Example.arrays
-        # complete.
+        # batch buffer directly (native: mmap -> batch buffer, one copy
+        # in all).  The eager default keeps Example.arrays complete.
+        self.use_native = use_native
         self.lazy_features = lazy_features
         m, d = cfg.model, cfg.data
         self.cfg = cfg
@@ -308,9 +332,12 @@ class CaptionDataset:
         n_sen = len(entry["sentences"])
         L = m.max_v_len + m.max_t_len
 
-        # lazy mode skips the feature bytes entirely: valid lengths come
+        # feature hot path: the native C++ packer (mmap + direct fill),
+        # bit-exact with the numpy fill (tests/test_torch_native.py).
+        # Lazy mode skips the feature bytes entirely: valid lengths come
         # from the .npy header + span math, and the batch builder fills
-        # the final buffer later
+        # the final buffer straight from the mmap later.
+        packed = None
         raw_feat = None
         valid_lens = None
         feature_ref = None
@@ -327,9 +354,22 @@ class CaptionDataset:
                                       np.float64),
                 frm2sec=frm2sec, valid=valid_lens,
                 max_v_len=m.max_v_len,
-                feature_size=m.video_feature_size)
+                feature_size=m.video_feature_size,
+                use_native=self.use_native)
+        elif self.use_native:
+            from svpc_torch.native import pack_video_native
+            p_resnet, p_bn = self.store.paths(video_name)
+            packed = pack_video_native(
+                p_resnet, p_bn, np.asarray(entry["timestamps"][:n_sen],
+                                           np.float64),
+                frm2sec, m.max_v_len, m.max_v_len, m.video_feature_size)
+            if packed is None:
+                raise ValueError(f"{video_name}: the native packer cannot "
+                                 f"read {p_resnet} / {p_bn}")
+            _count_fill("native")
         else:
             raw_feat = self.store.load(video_name)
+            _count_fill("numpy")
 
         out = dict(
             input_ids=np.zeros((S, L), np.int32),
@@ -341,8 +381,12 @@ class CaptionDataset:
             out["video_feature"] = np.zeros(
                 (S, m.max_v_len, m.video_feature_size), np.float32)
         for s in range(n_sen):
-            clip_packed = ((None, int(valid_lens[s])) if self.lazy_features
-                           else None)
+            if self.lazy_features:
+                clip_packed = (None, int(valid_lens[s]))
+            elif packed:
+                clip_packed = (packed[0][s], int(packed[1][s]))
+            else:
+                clip_packed = None
             clip = build_clip_arrays(
                 entry["timestamps"][s], entry["sentences"][s], raw_feat,
                 frm2sec, self.vocab, oov_word_dict, m.max_v_len, m.max_t_len,
@@ -458,12 +502,24 @@ def inference_entries(spec: Dict[str, dict], max_n_sen: int) -> List[dict]:
 def fill_features_from_ref(ref: Dict, block: np.ndarray) -> None:
     """Fill ``block`` (n_rows >= n_clips, total_len, D; zeroed,
     C-contiguous f32) with the referenced video's clip features — the
-    lazy pipeline's single feature copy."""
+    lazy pipeline's single feature copy (native: mmap -> ``block``)."""
     if len(ref["timestamps"]) == 0:
         return
+    store = ref["store"]
+    if ref.get("use_native", True):
+        from svpc_torch.native import pack_video_into
+        p_resnet, p_bn = store.paths(ref["name"])
+        valid = pack_video_into(p_resnet, p_bn, ref["timestamps"],
+                                ref["frm2sec"], ref["max_v_len"], block, 0)
+        if valid is None:
+            raise ValueError(f"{ref['name']}: the native packer cannot "
+                             f"read {p_resnet} / {p_bn}")
+        _count_fill("native")
+        return
     from svpc_torch.data.features import fill_clip_features
-    fill_clip_features(ref["store"].load(ref["name"]), ref["timestamps"],
+    fill_clip_features(store.load(ref["name"]), ref["timestamps"],
                        ref["frm2sec"], ref["max_v_len"], block)
+    _count_fill("numpy")
 
 
 def batch_examples(examples: Sequence[Example]) -> Batch:

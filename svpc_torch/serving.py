@@ -1,7 +1,8 @@
 """Online serving: a fixed-geometry decode service + dynamic request batching.
 
-The port of svpc_tpu/serving.py for videos whose features are on disk,
-decoded greedily or by beam search (``beam_size > 1``, with ``n_best``
+The port of svpc_tpu/serving.py for videos whose features are on disk or
+uploaded with the request (``upload_dir``), decoded greedily or by beam
+search (``beam_size > 1``, with ``n_best``
 ranked hypotheses per clip).  ``CaptionService`` pins one serving geometry —
 ``batch_videos`` video slots x ``max_clips`` steps x ``max_v_len`` feature
 rows, the packed clip budget rounded to the pack multiple — so every
@@ -11,8 +12,8 @@ to ``batch_videos`` videos or ``max_wait_ms``).  Host work (tokenization,
 feature fill) runs in the submitting thread; the one batcher thread only
 assembles batches and runs the model.
 
-Multi-card ``mesh`` serving and feature uploads (``upload_dir``) are
-later slices and raise ``NotImplementedError`` here.
+Multi-card ``mesh`` serving is a later slice and raises
+``NotImplementedError`` here.
 The HTTP front-end lives in cli/serve.py.
 """
 
@@ -131,8 +132,6 @@ class CaptionService:
                 f"n_best={n_best} cannot exceed beam_size={beam_size}")
         if mesh is not None:
             raise _not_ported("multi-card (mesh) serving")
-        if upload_dir:
-            raise _not_ported("feature upload serving (upload_dir)")
         if batch_videos < 1:
             raise ValueError(f"batch_videos must be >= 1, got {batch_videos}")
         # the features go to the card in the compute dtype (svpc_tpu/
@@ -153,6 +152,20 @@ class CaptionService:
             raise ValueError(
                 f"verb vocab ({self.ds.action_vocab_size}) does not match "
                 f"model action_vocab_size ({cfg.model.action_vocab_size})")
+
+        # optional feature-upload spool: requests may carry the feature
+        # arrays themselves (plus duration/n_frames for the frm2sec math)
+        # instead of relying on files pre-staged under video_feature_dir
+        self._upload_dir = upload_dir
+        self._upload_lock = threading.Lock()
+        self.up_ds: Optional[CaptionDataset] = None
+        if upload_dir:
+            from svpc_torch.data.features import FeatureStore
+            os.makedirs(upload_dir, exist_ok=True)
+            self.up_ds = CaptionDataset(
+                cfg, "infer", num_steps=max_clips, entries=[],
+                lazy_features=True, feature_store=FeatureStore(upload_dir))
+            self.up_ds.frame_to_second = {}  # rows arrive per upload
 
         # packed clip budgets: the worst case (every slot a full video) is
         # always covered; smaller ``clip_buckets`` let light batches (a
@@ -212,22 +225,114 @@ class CaptionService:
     # request validation / host-side example building
     # ---------------------------------------------------------------- #
 
+    def put_features(self, video_id: str, features: Dict,
+                     duration, n_frames) -> None:
+        """Spool uploaded feature arrays (base64 .npy payloads) and the
+        video's frm2sec row so subsequent requests can decode it."""
+        import base64
+        import io
+
+        from svpc_torch.data.anet import duration_to_frm2sec
+        if self.up_ds is None:
+            raise ServingError(
+                "feature upload is disabled — start the daemon with "
+                "--upload_dir")
+        if not isinstance(features, dict) or \
+                not {"resnet", "bn"} <= set(features):
+            raise ServingError(
+                "'features' must carry base64 .npy payloads under "
+                "'resnet' and 'bn'")
+        try:
+            duration, n_frames = float(duration), float(n_frames)
+        except (TypeError, ValueError):
+            raise ServingError(
+                "feature upload needs numeric 'duration' (seconds) and "
+                "'n_frames' (the duration-CSV row for the frm2sec math)")
+        if duration <= 0 or n_frames <= 0:
+            raise ServingError("'duration' and 'n_frames' must be > 0")
+        arrays = {}
+        for kind in ("resnet", "bn"):
+            try:
+                arrays[kind] = np.load(
+                    io.BytesIO(base64.b64decode(features[kind])),
+                    allow_pickle=False)
+            except Exception as e:
+                raise ServingError(
+                    f"features.{kind}: not a valid base64 .npy payload "
+                    f"({e})")
+        r, b = arrays["resnet"], arrays["bn"]
+        want = self.cfg.model.video_feature_size
+        if r.ndim != 2 or b.ndim != 2 or r.shape[0] != b.shape[0]:
+            raise ServingError(
+                f"feature arrays must be 2-D with equal rows; got "
+                f"resnet{tuple(r.shape)} bn{tuple(b.shape)}")
+        if r.shape[1] + b.shape[1] != want:
+            raise ServingError(
+                f"resnet+bn feature dims {r.shape[1]}+{b.shape[1]} != "
+                f"model video_feature_size {want}")
+        vn = self.up_ds.video_name(video_id)
+        store = self.up_ds.store
+        # the big work (casts, disk writes) happens OUTSIDE the lock under
+        # collision-free tmp names, so concurrent uploads of unrelated
+        # videos do not queue behind each other
+        staged = []  # (tmp, final)
+        for kind, arr in arrays.items():
+            # float32 on disk whatever the client sent (float16 included):
+            # the native packer's fast path, and the bytes the disk-staged
+            # features of the same video give
+            arr = np.ascontiguousarray(arr, dtype=np.float32)
+            # temp-write + atomic rename: a concurrent in-flight decode
+            # holding the old file's mmap keeps reading the old inode
+            # instead of seeing a truncated rewrite
+            final = os.path.join(store.feature_dir, f"{vn}_{kind}.npy")
+            tmp = (f"{final}.{os.getpid()}.{threading.get_ident()}"
+                   ".tmp.npy")  # np.save keeps .npy-suffixed names
+            np.save(tmp, arr)
+            staged.append((tmp, final))
+        with self._upload_lock:
+            # only the publish step is serialized: the two renames of one
+            # video land as a pair, so a racing RE-upload of the SAME id
+            # cannot interleave into a mixed resnet/bn pair on disk (a
+            # decode already holding the old mmaps is stopped by the
+            # packer's row bound, not corrupted)
+            for tmp, final in staged:
+                os.replace(tmp, final)
+            store.invalidate()  # re-uploads must drop cached rows/mmaps
+            self.up_ds.frame_to_second[vn] = duration_to_frm2sec(
+                duration, n_frames, self.cfg.data.dset_name,
+                self.cfg.data.sampling_sec)
+
+    def _owner(self, video_id: str) -> Optional[CaptionDataset]:
+        """Dataset shell that can serve this video: uploads win (most
+        recent information), then the configured feature dir."""
+        if self.up_ds is not None:
+            vn = self.up_ds.video_name(video_id)
+            if self.up_ds.store.exists(vn) and \
+                    vn in self.up_ds.frame_to_second:
+                return self.up_ds
+        vn = self.ds.video_name(video_id)
+        if self.ds.store.exists(vn) and vn in self.ds.frame_to_second:
+            return self.ds
+        return None
+
     def make_entry(self, video_id: str, spec: Dict) -> dict:
-        """Validate one request spec -> dataset entry.  Raises
-        ServingError with a client-usable message on bad input."""
+        """Validate one request spec -> dataset entry.
+
+        Raises ServingError with a client-usable message on bad input
+        (unknown feature files, missing duration row, no timestamps).  A
+        spec carrying 'features' (+ 'duration'/'n_frames') uploads the
+        video's feature arrays first."""
         if not isinstance(video_id, str) or not video_id \
                 or os.sep in video_id \
                 or (os.altsep and os.altsep in video_id) \
                 or ".." in video_id or video_id.startswith("."):
-            # ids become <id>_{resnet,bn}.npy paths
+            # ids become <id>_{resnet,bn}.npy paths (and upload WRITES
+            # them): reject anything that could escape the directory
             raise ServingError(f"invalid video_id {video_id!r}")
         if not isinstance(spec, dict) or "timestamps" not in spec:
             raise ServingError(
                 "request must carry {'timestamps': [[start_s, end_s], ...],"
                 " 'ingredients': [...]}")
-        if "features" in spec:
-            raise ServingError("feature upload is not served by this daemon; "
-                               "stage <vid>_{resnet,bn}.npy on disk")
         raw_ts = spec["timestamps"]
         if not isinstance(raw_ts, (list, tuple)) or not raw_ts:
             raise ServingError(f"{video_id}: needs at least one timestamp")
@@ -249,25 +354,32 @@ class CaptionService:
         if len(ts) > self.max_clips:
             logger.warning("%s: %d clips truncated to serving max_clips=%d",
                            video_id, len(ts), self.max_clips)
+        if "features" in spec:
+            self.put_features(video_id, spec["features"],
+                              spec.get("duration"), spec.get("n_frames"))
         entry = inference_entries(
             {video_id: dict(timestamps=ts,
                             ingredients=list(spec.get("ingredients", [])),
                             sentences=spec.get("sentences"))},
             self.max_clips)[0]
-        vn = self.ds.video_name(video_id)
-        if not self.ds.store.exists(vn):
-            raise ServingError(
-                f"{video_id}: no feature files (<vid>_resnet.npy + "
-                f"<vid>_bn.npy) under {self.ds.store.feature_dir}")
-        if vn not in self.ds.frame_to_second:
+        owner = self._owner(video_id)
+        if owner is None:
+            vn = self.ds.video_name(video_id)
+            if not self.ds.store.exists(vn):
+                raise ServingError(
+                    f"{video_id}: no feature files (<vid>_resnet.npy + "
+                    f"<vid>_bn.npy) under {self.ds.store.feature_dir}"
+                    + (" — or upload them in the request ('features')"
+                       if self.up_ds is not None else ""))
             raise ServingError(
                 f"{video_id}: no duration row in "
                 f"{self.cfg.data.duration_file}")
-        entry["source"] = "disk"
+        entry["source"] = "upload" if owner is self.up_ds else "disk"
         return entry
 
     def example_for(self, entry: dict) -> Example:
-        return self.ds.make_example(entry)
+        ds = self.up_ds if entry.get("source") == "upload" else self.ds
+        return ds.make_example(entry)
 
     # ---------------------------------------------------------------- #
     # device batch decode
@@ -310,6 +422,13 @@ class CaptionService:
                     for sents, extras in zip(sentences, nbest)]
         sentences = batch_to_sentences(out, metas, self.ds.vocab)
         return [[{"sentence": s} for s in sents] for sents in sentences]
+
+    def decode_examples(self, examples: Sequence[Example]) -> List[List[str]]:
+        """Decode up to ``batch_videos`` examples -> per-example sentence
+        lists (one postprocessed sentence per real clip; rank 0 under
+        n_best)."""
+        return [[c["sentence"] for c in clips]
+                for clips in self.decode_payloads(examples)]
 
     def caption(self, specs: Dict[str, Dict]) -> Dict[str, List[dict]]:
         """Synchronous convenience: decode a whole spec dict (chunked to the

@@ -154,6 +154,31 @@ class Vocabulary:
         return " ".join(words)
 
 
+def build_vocab(
+    sentences: Sequence[str], min_word_count: int = 5
+) -> Dict[str, int]:
+    """Build a word2idx from training sentences.
+
+    Matches the reference builder (src/build_vocab.py:12-43): words kept
+    iff ``count > min_word_count`` (strictly greater).  One deliberate
+    deviation: the reference iterates a *set* of words when assigning
+    ids, so its output permutes across runs (hash-randomized set order)
+    — here ids follow first-appearance order in the corpus, so two runs
+    on the same sentences produce the same word2idx (a vocab cache /
+    checkpoint pair stays self-consistent when rebuilt).
+    """
+    tokenized = [word_tokenize(s.lower()) for s in sentences]
+    word2idx = dict(SPECIAL_TOKENS)
+    word_count: Dict[str, int] = {}
+    for sent in tokenized:
+        for w in sent:
+            word_count[w] = word_count.get(w, 0) + 1
+    for word, count in word_count.items():
+        if word not in word2idx and count > min_word_count:
+            word2idx[word] = len(word2idx)
+    return word2idx
+
+
 def tokenize_ingredients(
     ingredients: Sequence[str], max_i_len: int
 ) -> Tuple[List[str], List[int], List[int]]:

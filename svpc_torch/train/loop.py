@@ -116,7 +116,8 @@ def packing_builder(cfg: Config, n_clips: Optional[int] = None,
             examples, cfg.model.max_t_len, batch_size=batch_size,
             n_clips=n_clips, v_len=v_len,
             clip_multiple=cfg.train.pack_clip_multiple,
-            v_multiple=cfg.train.pack_v_multiple)
+            v_multiple=cfg.train.pack_v_multiple,
+            fill_workers=cfg.data.num_workers)
 
     return build
 

@@ -30,7 +30,7 @@ import torch
 
 from tests.torch_parity import (assert_in_band, bf16_pair,
                                 dropout_free, f32, jax_compile,
-                                shared_gumbel, to_port)
+                                row_terms, shared_gumbel, to_port)
 
 torch.set_num_threads(1)
 
@@ -109,53 +109,10 @@ def _jax(mode, packed, dtype):
     return _jax_forward()[(mode, str(packed), dtype)]
 
 
-def _row_terms(out, batch, cfg):
-    """Each loss of ``out`` (numpy ModelOutputs) as its terms, one a row
-    (a caption position, a (video, step) row of entities or actions),
-    computed by the port's float32 loss functions."""
-    from svpc_torch import tokenization as tok
-    from svpc_torch.ops.losses import (asymmetric_loss_sum, bce_sum,
-                                       label_smoothing_kl)
-
-    b = to_port(batch)
-    T, V = cfg.max_t_len, cfg.vocab_size
-    if "clip_video" in b:
-        labels = b["clip_input_labels"][:, -T:]
-        oov = b["oov_count"][b["clip_video"]]
-    else:
-        labels = b["input_labels"][:, :, -T:]
-        oov = b["oov_count"]
-    if cfg.model_mode == "video":
-        labels = torch.where(labels >= V, torch.full_like(labels, tok.UNK),
-                             labels)
-        oov = torch.zeros_like(oov)
-    probs = torch.from_numpy(f32(out.prediction_scores))
-    rows = probs.reshape(-1, probs.shape[-1])
-    ext = (V + oov).repeat_interleave(rows.shape[0] // oov.shape[0])
-    terms = {"caption_loss": [label_smoothing_kl(
-        rows[i:i + 1], labels.reshape(-1)[i:i + 1], ext[i:i + 1],
-        cfg.label_smoothing) for i in range(rows.shape[0])]}
-    sup = b["step_mask"][..., None] * b["entity_mask"][:, None]
-    for prefix in ("", "re_"):
-        ent = getattr(out, f"{prefix}ent_probs")
-        if ent is None:
-            continue
-        ent = torch.from_numpy(f32(ent))
-        ac = torch.from_numpy(f32(getattr(out, f"{prefix}ac_probs")))
-        cells = [(i, j) for i in range(ent.shape[0])
-                 for j in range(ent.shape[1])]
-        terms[f"{prefix}entity_loss"] = [bce_sum(
-            ent[i, j], b["alignment"][i, j], sup[i, j]) for i, j in cells]
-        terms[f"{prefix}action_loss"] = [asymmetric_loss_sum(
-            ac[i, j][None], b["action"][i, j][None],
-            b["action_row_mask"][i, j][None]) for i, j in cells]
-    return {k: np.array([float(t) for t in v]) for k, v in terms.items()}
-
-
 def _loss_bands(mode, packed, cfg):
     """Each loss's band: twice the sum over its rows of |row(jax bf16) -
     row(jax f32)|, plus 1e-5 (the total's is its parts', weighted)."""
-    t16, t32 = (_row_terms(_jax(mode, packed, d), _batch(mode, packed),
+    t16, t32 = (row_terms(_jax(mode, packed, d), _batch(mode, packed),
                            cfg) for d in ("bfloat16", "float32"))
     bands = {k: 2.0 * float(np.abs(t16[k] - t32[k]).sum()) + 1e-5
              for k in t16}

@@ -45,8 +45,9 @@ def test_port_imports_no_jax_and_nothing_of_svpc_tpu():
 
 def test_every_port_module_imports_without_them():
     """A fresh interpreter imports every module of svpc_torch (the
-    evaluation scorers, beam search and the evaluate / caption CLIs
-    included) and ends with none of the forbidden packages loaded."""
+    evaluation scorers, beam search, the native packer's loader, the
+    client, the tagger and every CLI included) and ends with none of the
+    forbidden packages loaded."""
     names = sorted(
         os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
         .replace(".__init__", "")
@@ -54,7 +55,14 @@ def test_every_port_module_imports_without_them():
         and os.path.basename(p) != "chip_smoke.py")
     for name in ("svpc_torch.evaluation.meteor", "svpc_torch.evaluation.porter",
                  "svpc_torch.decode.beam", "svpc_torch.cli.evaluate",
-                 "svpc_torch.cli.caption"):
+                 "svpc_torch.cli.caption", "svpc_torch.native",
+                 "svpc_torch.client", "svpc_torch.tagging",
+                 "svpc_torch.cli.export_checkpoint",
+                 "svpc_torch.cli.dump_memories",
+                 "svpc_torch.cli.validate_data",
+                 "svpc_torch.cli.convert_features",
+                 "svpc_torch.cli.build_vocab",
+                 "svpc_torch.cli.build_pos_vocab"):
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"

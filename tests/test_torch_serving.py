@@ -3,6 +3,7 @@
 identical sentences; the dynamic batcher coalesces concurrent submits;
 the HTTP daemon answers /healthz, /v1/captions and /v1/stats."""
 
+import http.client
 import json
 import threading
 import urllib.error
@@ -130,6 +131,17 @@ def test_http_server_answers_the_api(fixture):
         assert code == 200
         assert stats["requests"] == 2 and stats["errors"] == 1
         assert stats["batches"] == 1
+        # a daemon without an upload spool refuses bodies over 1 MiB
+        # before reading them
+        conn = http.client.HTTPConnection(*server.server_address,
+                                          timeout=60)
+        conn.putrequest("POST", "/v1/captions")
+        conn.putheader("Content-Length", str((1 << 20) + 1))
+        conn.endheaders()
+        resp = conn.getresponse()
+        assert resp.status == 400
+        assert "bad Content-Length" in json.loads(resp.read())["error"]
+        conn.close()
     finally:
         stop_server(server)
 

@@ -171,6 +171,90 @@ def shared_gumbel(noise=None):
         jsvpc.gumbel_softmax_st, psvpc.gumbel_softmax_st = saved
 
 
+@contextlib.contextmanager
+def shared_gumbel_by_shape(seed: int):
+    """``shared_gumbel`` for batches of several shapes: both packages'
+    re-simulator samplers add the same numpy Gumbel noise, drawn once per
+    logits shape from ``seed``."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    import svpc_tpu.model.svpc as jsvpc
+    import svpc_torch.model.svpc as psvpc
+    from svpc_torch.ops.gumbel import straight_through
+
+    drawn = {}
+
+    def noise(shape):
+        if shape not in drawn:
+            drawn[shape] = np.random.RandomState(seed).gumbel(
+                size=shape).astype(np.float32)
+        return drawn[shape]
+
+    def jax_st(key, logits, tau, axis=-1):
+        g = jnp.asarray(noise(tuple(logits.shape)))
+        y_soft = jax.nn.softmax((logits.astype(jnp.float32) + g) / tau,
+                                axis=axis).astype(logits.dtype)
+        y_hard = jax.nn.one_hot(jnp.argmax(y_soft, axis=axis),
+                                logits.shape[axis], dtype=logits.dtype,
+                                axis=axis)
+        return y_hard + y_soft - jax.lax.stop_gradient(y_soft)
+
+    def port_st(logits, tau, generator=None):
+        return straight_through(logits, torch.from_numpy(
+            noise(tuple(logits.shape))).to(logits.device), tau)
+
+    saved = jsvpc.gumbel_softmax_st, psvpc.gumbel_softmax_st
+    jsvpc.gumbel_softmax_st, psvpc.gumbel_softmax_st = jax_st, port_st
+    try:
+        yield
+    finally:
+        jsvpc.gumbel_softmax_st, psvpc.gumbel_softmax_st = saved
+
+
+def row_terms(out, batch, cfg):
+    """Each loss of ``out`` (numpy ModelOutputs) as its terms, one a row
+    (a caption position, a (video, step) row of entities or actions),
+    computed by the port's float32 loss functions."""
+    from svpc_torch import tokenization as tok
+    from svpc_torch.ops.losses import (asymmetric_loss_sum, bce_sum,
+                                       label_smoothing_kl)
+
+    b = to_port(batch)
+    T, V = cfg.max_t_len, cfg.vocab_size
+    if "clip_video" in b:
+        labels = b["clip_input_labels"][:, -T:]
+        oov = b["oov_count"][b["clip_video"]]
+    else:
+        labels = b["input_labels"][:, :, -T:]
+        oov = b["oov_count"]
+    if cfg.model_mode == "video":
+        labels = torch.where(labels >= V, torch.full_like(labels, tok.UNK),
+                             labels)
+        oov = torch.zeros_like(oov)
+    probs = torch.from_numpy(f32(out.prediction_scores))
+    rows = probs.reshape(-1, probs.shape[-1])
+    ext = (V + oov).repeat_interleave(rows.shape[0] // oov.shape[0])
+    terms = {"caption_loss": [label_smoothing_kl(
+        rows[i:i + 1], labels.reshape(-1)[i:i + 1], ext[i:i + 1],
+        cfg.label_smoothing) for i in range(rows.shape[0])]}
+    sup = b["step_mask"][..., None] * b["entity_mask"][:, None]
+    for prefix in ("", "re_"):
+        ent = getattr(out, f"{prefix}ent_probs")
+        if ent is None:
+            continue
+        ent = torch.from_numpy(f32(ent))
+        ac = torch.from_numpy(f32(getattr(out, f"{prefix}ac_probs")))
+        cells = [(i, j) for i in range(ent.shape[0])
+                 for j in range(ent.shape[1])]
+        terms[f"{prefix}entity_loss"] = [bce_sum(
+            ent[i, j], b["alignment"][i, j], sup[i, j]) for i, j in cells]
+        terms[f"{prefix}action_loss"] = [asymmetric_loss_sum(
+            ac[i, j][None], b["action"][i, j][None],
+            b["action_row_mask"][i, j][None]) for i, j in cells]
+    return {k: np.array([float(t) for t in v]) for k, v in terms.items()}
+
+
 def jax_compile(fn, *args):
     """jax.jit(fn) compiled for arguments shaped like ``args``, with the XLA
     backend at its lowest optimization level (a quarter less compile time
