@@ -78,6 +78,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
            4-video validation batch the eval forward's probabilities and
            one train step's gradients (each parameter's in its own band),
            card against CPU in the band, the control outside it.
+  train_knobs
+           svpc_tpu's one-device training knobs on the train phase's
+           fixture at full width, f32: one grad_step with --remat and
+           without (dropout on, one generator seed): the same loss, every
+           gradient within 1e-6 of its norm, peak memory and ms of each;
+           two real groups of --steps_per_dispatch 2 --grad_accum_steps 2
+           (a (2, 2) group and the tail's (1, 2)) through multi_train_step
+           and through sequential grad_steps / apply_steps: parameters,
+           moments, EMA and per-step losses within 1e-6 of each norm; then
+           cli.train --steps_per_dispatch 2 --grad_accum_steps 2
+           --checkpoint_every_steps 1 --profile_steps 2 for one epoch of 6
+           host batches with validation (both kernel paths launch, none
+           inside a step; the trace under <workdir>/profile/ holds CUDA
+           kernel events; a TensorBoard events file when tensorboard is
+           importable), killed in its second call and resumed from its
+           mid-epoch checkpoint to the same losses and history.
   evaluate svpc_torch.cli.evaluate on the train phase's checkpoint_best:
            greedy, then --use_beam --beam_size 2 --n_best 2
            --ingredient_f1, on the val and test splits (both kernel paths
@@ -1313,6 +1329,256 @@ def phase_train_bf16(seed: int, workdir: str, fx):
 
 
 # ---------------------------------------------------------------------- #
+# train_knobs
+# ---------------------------------------------------------------------- #
+
+def _norm_rel(a: dict, b: dict) -> float:
+    """max over tensors of |a - b| / |b| (L2 norms; 0 where both are 0)."""
+    worst = 0.0
+    with torch.no_grad():
+        for name, t in b.items():
+            d = float((a[name].float() - t.float()).norm())
+            n = float(t.float().norm())
+            worst = max(worst, d / n if n else d)
+    return worst
+
+
+def _remat_check(cfg, batch, seed):
+    """One grad_step from one state and one generator seed, the config's
+    dropout on, with remat off and on (off, on, off, on): the loss equal,
+    every gradient within 1e-6 of its norm; peak memory and step ms
+    (CUDA events) of each."""
+    import dataclasses
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.train.optim import make_optimizer
+    from svpc_torch.train.state import TrainState
+    from svpc_torch.train.step import grad_step, step_generator
+
+    base = SVPCModel(cfg.model, torch.Generator().manual_seed(seed))
+    runs = {False: [], True: []}
+    for remat in (False, True, False, True):
+        model = SVPCModel(dataclasses.replace(cfg.model, remat=remat))
+        model.load_state_dict(base.state_dict(), strict=True)
+        model = model.cuda()
+        state = TrainState.create(model, make_optimizer(
+            cfg.train, 6, dict(model.named_parameters())), use_ema=True)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        m = grad_step(state, batch, cfg, step_generator("cuda", seed, 0))
+        ev[1].record()
+        torch.cuda.synchronize()
+        runs[remat].append({
+            "loss": float(m["loss"]), "ms": ev[0].elapsed_time(ev[1]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "resident_bytes": resident,
+            "grads": {n: p.grad.cpu() for n, p in state.params.items()}})
+        del state, model, m
+    off, on = runs[False][-1], runs[True][-1]
+    out = {"loss": [off["loss"], on["loss"]],
+           "grad_max_rel": _norm_rel(on["grads"], off["grads"])}
+    for name, rs in (("off", runs[False]), ("on", runs[True])):
+        out[name] = {k: [r[k] for r in rs] for k in (
+            "ms", "max_memory_allocated", "resident_bytes")}
+    bad = []
+    if on["loss"] != off["loss"]:
+        bad.append(f"remat loss {on['loss']} != {off['loss']}")
+    if out["grad_max_rel"] > 1e-6:
+        bad.append(f"remat gradients {out['grad_max_rel']:.3e} of a norm")
+    return out, bad
+
+
+def _multi_step_check(cfg, seed):
+    """Two real training groups (K=2, A=2: a (2, 2) group and the tail's
+    (1, 2)) through multi_train_step and through the sequential
+    grad_steps / apply_steps over the same slices, from one state:
+    parameters, moments, EMA and per-step losses within 1e-6 of each
+    norm."""
+    import svpc_torch.train.loop as loop
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.train.optim import make_optimizer
+    from svpc_torch.train.state import TrainState
+    from svpc_torch.train.step import (apply_step, grad_step,
+                                       multi_train_step, step_generator)
+
+    cfg = cfg.replace_train(grad_accum_steps=2, steps_per_dispatch=2)
+    host = CaptionDataset(cfg, "train", lazy_features=True).batches(
+        16, shuffle=True, seed=cfg.train.seed,
+        builder=loop.packing_builder(cfg))
+    groups = list(loop.group_stack_batches(host, 2, cfg.model.max_t_len,
+                                           accum=2))
+    shapes = [tuple(g["clip_mask"].shape[:2]) for g, _ in groups]
+    base = SVPCModel(cfg.model, torch.Generator().manual_seed(seed))
+    states = []
+    for _ in range(2):
+        model = SVPCModel(cfg.model)
+        model.load_state_dict(base.state_dict(), strict=True)
+        model = model.cuda()
+        states.append(TrainState.create(model, make_optimizer(
+            cfg.train, 3, dict(model.named_parameters())), use_ema=True))
+    fused, seq = states
+    got, want, wall = [], [], {"fused": 0.0, "sequential": 0.0}
+    for g, _ in groups:
+        g = to_tensors(g, torch.device("cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = multi_train_step(fused, g, cfg)
+        got += [float(x) for x in m["loss"]]
+        t1 = time.perf_counter()
+        for k in range(g["clip_mask"].shape[0]):
+            step, loss = seq.step, 0.0
+            for i in range(g["clip_mask"].shape[1]):
+                loss += float(grad_step(
+                    seq, {key: v[k, i] for key, v in g.items()}, cfg,
+                    step_generator("cuda", cfg.train.seed, step, i))["loss"])
+            apply_step(seq, cfg)
+            want.append(loss)
+        torch.cuda.synchronize()
+        wall["fused"] += t1 - t0
+        wall["sequential"] += time.perf_counter() - t1
+    rel = {"params": _norm_rel(fused.params, seq.params),
+           "m": _norm_rel(fused.optimizer.m, seq.optimizer.m),
+           "v": _norm_rel(fused.optimizer.v, seq.optimizer.v),
+           "ema": _norm_rel(fused.ema_shadow, seq.ema_shadow),
+           "losses": max(abs(a - b) / abs(b) for a, b in zip(got, want))}
+    bad = [f"multi_train_step {k} {v:.3e}" for k, v in rel.items()
+           if v > 1e-6]
+    if shapes != [(2, 2), (1, 2)]:
+        bad.append(f"groups {shapes}")
+    # host clock around each whole call (the first group's includes the
+    # first calls' costs): ms per optimizer step
+    return {"groups": shapes, "losses": got, "sequential_losses": want,
+            "max_rel": rel, "steps": fused.step,
+            "ms_per_step": {k: v * 1e3 / len(got) for k, v in wall.items()}
+            }, bad
+
+
+def _trace_kernels(path: str) -> int:
+    """CUDA kernel events in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def phase_train_knobs(seed: int, workdir: str, fx):
+    """svpc_tpu's one-device training knobs on the train phase's fixture at
+    full vivt width, f32: remat against no remat (``_remat_check``), the
+    K-step call against its sequential steps (``_multi_step_check``), then
+    the main path, cli.train --steps_per_dispatch 2 --grad_accum_steps 2
+    --checkpoint_every_steps 1 --profile_steps 2 for one epoch of 6 host
+    batches with validation (both kernel paths must launch, none inside a
+    train step; the trace must hold CUDA kernel events), killed in its
+    second call and resumed from the mid-epoch checkpoint to the same
+    losses and history."""
+    import importlib.util
+
+    import svpc_torch.train.loop as loop
+    from svpc_torch.cli import train as train_cli
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    cfg = _train_cfg(fx)
+    batch_np, _ = next(CaptionDataset(cfg, "train", lazy_features=True)
+                       .batches(16, shuffle=True, seed=cfg.train.seed,
+                                builder=loop.packing_builder(cfg)))
+    remat, bad = _remat_check(cfg, to_tensors(batch_np, torch.device("cuda")),
+                              seed)
+    multi, multi_bad = _multi_step_check(cfg, seed)
+    bad += multi_bad
+
+    tensorboard = importlib.util.find_spec("tensorboard") is not None
+    argv = lambda wd: _fixture_argv(fx) + [
+        "--batch_size", "16", "--val_batch_size", "16", "--n_epoch", "1",
+        "--steps_per_dispatch", "2", "--grad_accum_steps", "2",
+        "--checkpoint_every_steps", "1", "--profile_steps", "2",
+        "--workdir", wd]
+    real, inside = loop.multi_train_step, {"calls": 0, "launches": 0,
+                                           "kill": None}
+
+    def counted(*args, **kwargs):
+        if inside["calls"] == inside["kill"]:
+            raise _Killed()
+        before = LAUNCHES["fused_attention"]
+        out = real(*args, **kwargs)
+        inside["launches"] += LAUNCHES["fused_attention"] - before
+        inside["calls"] += 1
+        return out
+
+    wd_a, wd_b = (os.path.join(workdir, "knobs_" + x) for x in "ab")
+    loop.multi_train_step = counted
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        res_a = train_cli.main(argv(wd_a))
+        train_s = time.perf_counter() - t1
+        launches = dict(LAUNCHES)
+        calls_a, in_steps = inside["calls"], inside["launches"]
+        inside.update(calls=0, kill=1)
+        try:
+            train_cli.main(argv(wd_b))
+            fail("train_knobs", "the kill did not happen")
+        except _Killed:
+            pass
+        inside.update(calls=0, kill=None)
+        with open(os.path.join(wd_b, "checkpoint_last.progress.json")) as f:
+            progress = json.load(f)
+        res_b = train_cli.main(argv(wd_b) + [
+            "--resume_from", os.path.join(wd_b, "checkpoint_last")])
+    finally:
+        loop.multi_train_step = real
+    losses = [s["loss"] for s in res_a["steps"]]
+    resumed = [s["loss"] for s in res_b["steps"]]
+    resume_rel = [abs(x - y) / abs(y) for x, y in zip(resumed, losses[2:])]
+    hist = [json.load(open(os.path.join(w, "history.json")))
+            for w in (wd_a, wd_b)]
+    if len(losses) != 3 or calls_a != 2 or \
+            not all(math.isfinite(x) for x in losses):
+        bad.append(f"{calls_a} calls, losses {losses}")
+    if (progress["epoch"], progress["batches_done"]) != (0, 4) or \
+            [s["step"] for s in res_b["steps"]] != [2] or \
+            max(resume_rel, default=1.0) > 1e-5:
+        bad.append(f"resume from {progress}: {resumed} against {losses}")
+    hist_rel = abs(hist[1][0]["train"]["loss_per_word"]
+                   - hist[0][0]["train"]["loss_per_word"]) / abs(
+        hist[0][0]["train"]["loss_per_word"])
+    if len(hist[1]) != 1 or hist_rel > 1e-5:
+        bad.append(f"resumed history {hist[1]} against {hist[0]}")
+    if in_steps:
+        bad.append(f"fused_attention launched {in_steps} times inside "
+                   "train steps")
+    if not (launches["fused_attention.tile"]
+            and launches["fused_attention.decode"]):
+        bad.append(f"a path of fused_attention did not launch during "
+                   f"validation: {launches}")
+    trace = os.path.join(wd_a, "profile", "trace.json")
+    trace_kernels = _trace_kernels(trace) if os.path.exists(trace) else 0
+    if not trace_kernels:
+        bad.append("no CUDA kernel event in the profiler trace")
+    events = [f for f in os.listdir(wd_a) if f.startswith("events.")]
+    if tensorboard and not events:
+        bad.append("tensorboard is installed and wrote no events file")
+    row = {"phase": "train_knobs", "phase_s": time.perf_counter() - t_phase,
+           "remat": remat, "multi_step": multi, "train_s": train_s,
+           "losses": losses, "resumed_losses": resumed,
+           "resume_progress": progress, "history_loss_rel": hist_rel,
+           "launches": launches, "launches_in_train_steps": in_steps,
+           "trace_kernel_events": trace_kernels,
+           "tensorboard_importable": tensorboard,
+           "tensorboard_events_files": len(events), "card": card_line()}
+    if bad:
+        fail("train_knobs", f"{bad}: {json.dumps(row)}")
+    emit(dict(row, ok=True))
+    return launches
+
+
+# ---------------------------------------------------------------------- #
 # evaluate
 # ---------------------------------------------------------------------- #
 
@@ -2065,6 +2331,8 @@ def main(argv=None) -> int:
                                                                workdir)
         phases["train_bf16"], train_dir16 = phase_train_bf16(
             args.seed, workdir, train_fx)
+        phases["train_knobs"] = phase_train_knobs(args.seed, workdir,
+                                                  train_fx)
         phases["evaluate"] = phase_evaluate(train_fx, train_dir)
         phases["evaluate_bf16"] = phase_evaluate_bf16(train_fx, train_dir,
                                                       train_dir16)

@@ -112,6 +112,17 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--grad_accum_steps", type=int, default=1,
                    help="host batches per optimizer step (exact under the "
                         "summed losses)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize encoder/decoder layers on the "
+                        "backward pass (torch.utils.checkpoint): ~num_layers "
+                        "x less activation memory for one extra layer "
+                        "forward; values unchanged")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="optimizer steps per call: K > 1 stacks K batches "
+                        "into one pinned copy and runs K steps over it - "
+                        "same trajectory on the same stacked batches; "
+                        "composes with --grad_accum_steps (each step then "
+                        "accumulates that many microbatch gradients)")
     p.add_argument("--length_group", type=int, default=0,
                    help="sort windows of K*batch_size shuffled videos by "
                         "clip length before batching; 0 = uniform shuffle")
@@ -145,7 +156,7 @@ def train_config_from_args(args) -> Config:
         temperature=args.temperature, lambda_=args.lam,
         label_smoothing=args.label_smoothing,
         share_wd_cls_weight=args.share_wd_cls_weight,
-        use_asl=args.use_asl == "asl")
+        use_asl=args.use_asl == "asl", remat=args.remat)
     cfg = cfg.replace_data(glove_path=args.glove_path,
                            verb_glove_path=args.verb_glove_path,
                            num_workers=args.num_workers)
@@ -158,6 +169,7 @@ def train_config_from_args(args) -> Config:
         ema_decay=args.ema_decay, freeze_glove=args.freeze_glove,
         optimizer_dtype=args.optimizer_dtype,
         grad_accum_steps=args.grad_accum_steps,
+        steps_per_dispatch=args.steps_per_dispatch,
         length_group=args.length_group,
         checkpoint_every_steps=args.checkpoint_every_steps,
         debug=args.debug)

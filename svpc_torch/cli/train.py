@@ -11,7 +11,10 @@ Runs on the card unless ``--device cpu``.  Writes ``train.log.csv``,
 validation CIDEr; of the lowest validation loss under
 ``--no_language_eval``) and ``history.json`` under ``--workdir``;
 ``--resume_from <workdir>/checkpoint_last`` continues a run, inside its
-epoch when the checkpoint was taken mid-epoch.
+epoch when the checkpoint was taken mid-epoch.  TensorBoard scalars land
+in ``--workdir`` too (``--no_tensorboard``: csv logs only), and
+``--profile_steps N`` writes a ``torch.profiler`` trace of N steady-state
+host batches to ``<workdir>/profile/trace.json``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ def main(argv=None):
                    help="skip the greedy decode and language metrics of "
                         "each epoch; select checkpoint_best by validation "
                         "loss")
+    p.add_argument("--no_tensorboard", action="store_true")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="trace this many steady-state steps with "
+                        "torch.profiler")
     p.add_argument("--debug_nans", action="store_true",
                    help="autograd anomaly detection (the reference's "
                         "always-on check, off by default for speed)")
@@ -51,7 +58,8 @@ def main(argv=None):
                  max_steps_per_epoch=args.max_steps_per_epoch,
                  eval_language=not args.no_language_eval,
                  debug_nans=args.debug_nans, resume_from=args.resume_from,
-                 device=args.device)
+                 device=args.device, tensorboard=not args.no_tensorboard,
+                 profile_steps=args.profile_steps)
 
 
 if __name__ == "__main__":

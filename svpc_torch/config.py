@@ -95,8 +95,9 @@ class ModelConfig:
     # it: on a CUDA tensor every deterministic attention runs the
     # hand-written kernel (svpc_torch/ops/attention.py) whatever its value
     use_pallas: bool = False
-    # training knob of svpc_tpu (jax.checkpoint per layer); kept for
-    # sidecars, the port's trainer raises for it (not ported yet)
+    # recompute each encoder / decoder layer on the backward pass
+    # (torch.utils.checkpoint, model/layers.py); a training knob, values
+    # unchanged
     remat: bool = False
 
     @property
@@ -156,11 +157,13 @@ class TrainConfig:
     """Optimization / loop configuration (reference defaults of record).
 
     The trainer (train/loop.py) reads the optimization, schedule, EMA,
-    checkpoint and layout fields.  The parallelism fields (``dp_size``,
-    ``tp_size``, ``pp_size``, ``pp_microbatches``, ``zero1``,
-    ``multihost_sharded_data``), ``steps_per_dispatch``, ``donate_state``
-    and ``rng_impl`` are svpc_tpu's, kept so config sidecars round-trip;
-    the trainer raises for the ones it cannot honour."""
+    checkpoint and layout fields, and ``steps_per_dispatch`` (K optimizer
+    steps per call over one stacked copy, train/step.py).  The
+    parallelism fields (``dp_size``, ``tp_size``, ``pp_size``,
+    ``pp_microbatches``, ``zero1``, ``multihost_sharded_data``),
+    ``donate_state`` and ``rng_impl`` are svpc_tpu's, kept so config
+    sidecars round-trip; the trainer raises for the ones it cannot
+    honour."""
 
     lr: float = 1e-4
     lr_warmup_proportion: float = 0.1

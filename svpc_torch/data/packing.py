@@ -21,8 +21,9 @@ step grid for the step-level recurrence and gathers the cross-attention
 memory back per clip (model/svpc.py).  The video token span can also be
 sliced to the batch max valid length rounded up to a bucket.
 
-The port's copy of svpc_tpu/data/packing.py (same layout, same numbers);
-the multi-host and repad/stack helpers wait for the parallelism slice.
+The port's copy of svpc_tpu/data/packing.py (same layout, same numbers),
+with ``repad_packed`` / ``stack_batches`` for the K-steps-per-call train
+step; the multi-host helpers wait for the parallelism slice.
 """
 
 from __future__ import annotations
@@ -246,6 +247,81 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
     for k, v in clip_arrays.items():
         out[f"clip_{k}"] = v
     return out
+
+
+def is_packed(batch) -> bool:
+    return "clip_video" in batch
+
+
+def repad_packed(batch: Batch, max_t_len: int, n_clips: int, v_len: int,
+                 dp_shards: int = 1) -> Batch:
+    """Grow a packed batch to a larger (per-shard n_clips, v_len) geometry.
+
+    Produces exactly what pack_batch would have built with the bigger
+    budgets: extra clip rows are padding (clip_mask 0, labels IGNORE) and
+    the video span is zero-extended between the valid rows and the text
+    columns.  Gives a group of differently-bucketed batches one shared
+    shape so they stack (``stack_batches``).  No-op (no copy) when the
+    shape already matches.
+
+    ``dp_shards`` must match the value the batch was packed with: padding
+    is inserted inside each contiguous per-shard clip group.
+    """
+    total_old = batch["clip_mask"].shape[0]
+    if total_old % dp_shards:
+        raise ValueError(
+            f"packed clip axis {total_old} not divisible by "
+            f"dp_shards={dp_shards}")
+    N_old = total_old // dp_shards
+    v_old = batch["clip_input_ids"].shape[-1] - max_t_len
+    if n_clips < N_old or v_len < v_old:
+        raise ValueError(
+            f"repad_packed only grows: ({N_old},{v_old}) -> "
+            f"({n_clips},{v_len})")
+    if n_clips == N_old and v_len == v_old:
+        return batch
+
+    out = {k: v for k, v in batch.items() if not k.startswith("clip_")}
+    total = n_clips * dp_shards
+    for k in ("clip_video", "clip_step", "clip_mask"):
+        dst = np.zeros((total,), batch[k].dtype)
+        for g in range(dp_shards):
+            dst[g * n_clips:g * n_clips + N_old] = \
+                batch[k][g * N_old:(g + 1) * N_old]
+        out[k] = dst
+    for k in ("clip_input_ids", "clip_input_mask", "clip_token_type_ids",
+              "clip_input_labels"):
+        fill = tok.IGNORE if k == "clip_input_labels" else 0
+        dst = np.full((total, v_len + max_t_len), fill, batch[k].dtype)
+        for g in range(dp_shards):
+            src = batch[k][g * N_old:(g + 1) * N_old]
+            dst[g * n_clips:g * n_clips + N_old, :v_old] = src[:, :v_old]
+            dst[g * n_clips:g * n_clips + N_old, v_len:] = src[:, v_old:]
+        out[k] = dst
+    feat = batch["clip_video_feature"]
+    dst = np.zeros((total, v_len) + feat.shape[2:], feat.dtype)
+    for g in range(dp_shards):
+        dst[g * n_clips:g * n_clips + N_old, :v_old] = \
+            feat[g * N_old:(g + 1) * N_old]
+    out["clip_video_feature"] = dst
+    return out
+
+
+def stack_batches(batches, max_t_len: int, dp_shards: int = 1) -> Batch:
+    """Stack K same-batch-size batches along a new leading axis (K, ...)
+    for ``train.step.multi_train_step``: one pinned copy carries K
+    optimizer steps.  Packed batches are first repadded to the group-max
+    (n_clips, v_len), a host copy skipped when the group already shares
+    one bucket (length-grouped shuffling makes that the common case)."""
+    if len(batches) == 1:
+        return {k: v[None] for k, v in batches[0].items()}
+    if is_packed(batches[0]):
+        n = max(b["clip_mask"].shape[0] for b in batches) // dp_shards
+        v = max(b["clip_input_ids"].shape[-1] for b in batches) - max_t_len
+        batches = [repad_packed(b, max_t_len, n, v, dp_shards)
+                   for b in batches]
+    return {k: np.stack([b[k] for b in batches])
+            for k in batches[0]}
 
 
 def fixed_clip_budget(dataset, batch_size: int, multiple: int = 16) -> int:

@@ -16,6 +16,10 @@ Numerics follow svpc_tpu's map in both compute dtypes: ``Linear`` is
 dtype, every other dense in its input's), LayerNorm computes in float32
 and returns its input's dtype, the attention scores and softmax are
 float32 (ops/attention.py), and the decode caches keep the compute dtype.
+
+With ``cfg.remat`` the encoder and decoder stacks recompute each layer on
+the backward pass (``remat_layer``), svpc_tpu's ``nn.remat``; the values
+are unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from svpc_torch.config import ModelConfig
@@ -212,19 +217,62 @@ class EncoderLayer(nn.Module):
         return self.output(inter, attn_out, deterministic, generator)
 
 
+def remat_layer(layer: nn.Module, generator: Optional[torch.Generator],
+                *args):
+    """``layer(*args, generator=...)`` that keeps only its inputs for the
+    backward pass and recomputes the rest there (``torch.utils.checkpoint``;
+    svpc_tpu's ``nn.remat``).
+
+    Dropout draws from the explicit ``generator``, which checkpoint's
+    ``preserve_rng_state`` does not save, so both the forward and the
+    recomputation run from clones of its state at entry (the same masks),
+    and the generator is then left where the unwrapped forward leaves it."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(
+            layer, *args, use_reentrant=False)
+    entry = generator.get_state()
+    after = []
+
+    def run(*inputs):
+        g = torch.Generator(device=generator.device)
+        g.set_state(entry)
+        out = layer(*inputs, generator=g)
+        if not after:  # the first forward, not the recomputation
+            after.append(g.get_state())
+        return out
+
+    out = torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+    generator.set_state(after[0])
+    return out
+
+
+def _run_layers(layers, remat: bool, x, *args, deterministic: bool,
+                generator):
+    """x through each layer; rematerialized when ``remat`` is set and
+    autograd records (the incremental decode ``step`` is never wrapped)."""
+    remat = remat and torch.is_grad_enabled()
+    for layer in layers:
+        if remat:
+            x = remat_layer(layer, generator, x, *args, deterministic)
+        else:
+            x = layer(x, *args, deterministic, generator)
+    return x
+
+
 class Encoder(nn.Module):
     """Stack of EncoderLayers (reference BertEncoderNoMemoryUntied)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.layer = nn.ModuleList(EncoderLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x, mask_1d, diagonal_mask: bool = False,
                 deterministic: bool = True, generator=None):
-        for layer in self.layer:
-            x = layer(x, mask_1d, diagonal_mask, deterministic, generator)
-        return x
+        return _run_layers(self.layer, self.remat, x, mask_1d,
+                           diagonal_mask, deterministic=deterministic,
+                           generator=generator)
 
 
 class DecoderLayer(nn.Module):
@@ -288,15 +336,15 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.layer = nn.ModuleList(DecoderLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, dec, dec_mask, enc_out, enc_mask,
                 deterministic: bool = True, generator=None):
-        for layer in self.layer:
-            dec = layer(dec, dec_mask, enc_out, enc_mask, deterministic,
-                        generator)
-        return dec
+        return _run_layers(self.layer, self.remat, dec, dec_mask, enc_out,
+                           enc_mask, deterministic=deterministic,
+                           generator=generator)
 
     def project_enc_kv(self, enc_out) -> List[Tuple[torch.Tensor,
                                                     torch.Tensor]]:

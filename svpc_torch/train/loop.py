@@ -10,10 +10,14 @@ stopping on it; without language eval (``eval_language=False``, or no
 paragraph reference file) it is the one with the lowest validation loss.
 The offline decoders of ``cli.evaluate`` / ``cli.caption``
 (``make_eval_decoder``, ``run_greedy_eval``, ``run_nbest_eval``) live here
-too, as in svpc_tpu.  Mesh parallelism (dp, tp, pp, ZeRO-1), multi-host
-runs, remat and ``steps_per_dispatch`` are later slices: a config that asks
-for them (a sidecar written by svpc_tpu) raises.  The profiler and
-TensorBoard are later slices too.
+too, as in svpc_tpu.  ``steps_per_dispatch`` K > 1 groups K (x
+``grad_accum_steps``) host batches into one stacked batch
+(``group_stack_batches``), copied to the card in one pinned copy and run
+by ``multi_train_step``.  ``tensorboard`` writes svpc_tpu's scalars
+(``TBWriter``), ``profile_steps`` traces that many steady-state host
+batches with ``torch.profiler`` into ``<workdir>/profile/``.  Mesh
+parallelism (dp, tp, pp, ZeRO-1) and multi-host runs are a later slice: a
+config that asks for them (a sidecar written by svpc_tpu) raises.
 
 On the card the train step's attention runs the differentiable plain
 version; the hand-written attention kernel runs in validation (the
@@ -23,12 +27,15 @@ gradient.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import logging
 import math
 import os
+import sys
 import time
+import types
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,7 +43,8 @@ import torch
 
 from svpc_torch.config import Config
 from svpc_torch.data.anet import para_reference_files
-from svpc_torch.data.packing import fixed_clip_budget, pack_examples
+from svpc_torch.data.packing import (fixed_clip_budget, pack_examples,
+                                     stack_batches)
 from svpc_torch.data.pipeline import CaptionDataset
 from svpc_torch.data.prefetch import prefetch_to_device
 from svpc_torch.decode.beam import beam_decode
@@ -52,8 +60,8 @@ from svpc_torch.train.optim import GLOVE_TABLES, make_optimizer, n_parameters
 from svpc_torch.train.state import TrainState, load_checkpoint, \
     save_checkpoint
 from svpc_torch.train.step import (aggregate_metrics, apply_step, eval_step,
-                                   grad_step, step_generator, sum_metrics,
-                                   train_step)
+                                   grad_step, multi_train_step,
+                                   step_generator, sum_metrics, train_step)
 
 logger = logging.getLogger(__name__)
 
@@ -70,9 +78,7 @@ def check_supported(cfg: Config) -> None:
     for flag, on in (("dp/tp/pp mesh parallelism",
                       t.dp_size * t.tp_size * t.pp_size > 1),
                      ("ZeRO-1 (--zero1)", t.zero1),
-                     ("multi-host sharded data", t.multihost_sharded_data),
-                     ("--steps_per_dispatch > 1", t.steps_per_dispatch > 1),
-                     ("remat (--remat)", cfg.model.remat)):
+                     ("multi-host sharded data", t.multihost_sharded_data)):
         if on:
             raise _not_ported(flag)
 
@@ -120,6 +126,127 @@ def packing_builder(cfg: Config, n_clips: Optional[int] = None,
             fill_workers=cfg.data.num_workers)
 
     return build
+
+
+def group_stack_batches(batch_iter, k: int, max_t_len: int,
+                        dp_shards: int = 1, accum: int = 1):
+    """Group K (or K*accum) consecutive (batch, metas) pairs into one
+    stacked batch for ``multi_train_step`` (data/packing.stack_batches).
+    With ``accum > 1`` the stack is reshaped to (K, accum, ...): K
+    optimizer steps of ``accum`` accumulated microbatches each.  The epoch
+    tail never drops data: it yields the largest whole accumulation groups
+    first, then one (1, r < accum) partial group, the unfused
+    accumulation's partial flush.  Metas split at the same boundary as the
+    batches, so each video is attributed to the group that carries it."""
+
+    def emit(group, meta_groups):
+        stacked = stack_batches(group, max_t_len, dp_shards)
+        if accum > 1:
+            stacked = {key: v.reshape((len(group) // accum, accum)
+                                      + v.shape[1:])
+                       for key, v in stacked.items()}
+        return stacked, [m for ms in meta_groups for m in ms]
+
+    buf, metas = [], []
+    for batch, ms in batch_iter:
+        buf.append(batch)
+        metas.append(list(ms))
+        if len(buf) == k * accum:
+            yield emit(buf, metas)
+            buf, metas = [], []
+    if buf:
+        q, r = divmod(len(buf), accum)
+        if q:
+            yield emit(buf[:q * accum], metas[:q * accum])
+        if r:  # accum > 1 by construction (divmod(n, 1) has r == 0)
+            stacked = stack_batches(buf[q * accum:], max_t_len, dp_shards)
+            yield ({key: v[None] for key, v in stacked.items()},
+                   [m for ms in metas[q * accum:] for m in ms])
+
+
+class TBWriter:
+    """Optional TensorBoard writer (the reference logs scalars with
+    tensorboardX, train.py:359,387-421) on ``torch.utils.tensorboard``;
+    without the ``tensorboard`` package it logs that once and the csv logs
+    carry on alone."""
+
+    def __init__(self, logdir: str, enabled: bool = True):
+        self._w = None
+        if enabled:
+            # TensorBoard reaches for TensorFlow's file API whenever
+            # TensorFlow is installed (seconds and hundreds of MB, and a
+            # second XLA runtime in a process that may also run JAX); this
+            # marker makes it use its own stub, which writes the same files
+            sys.modules.setdefault("tensorboard.compat.notf",
+                                   types.ModuleType("tensorboard.compat.notf"))
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                logger.info("tensorboard is not installed; csv logs only")
+                return
+            self._w = SummaryWriter(logdir)
+
+    def scalar(self, tag: str, value, step: int):
+        if self._w is not None:
+            self._w.add_scalar(tag, float(value), step)
+
+    def close(self):
+        if self._w is not None:
+            self._w.close()
+
+
+class StepProfiler:
+    """``profile_steps`` host batches traced with ``torch.profiler`` (CPU
+    and, on the card, CUDA activities) from the first call after the
+    run's first (svpc_tpu skips its compile step), into
+    ``<workdir>/profile/trace.json``; an epoch that ends first writes what
+    was traced (svpc_tpu/train/loop.py:654-724)."""
+
+    def __init__(self, workdir: str, profile_steps: int, device):
+        self.dir = os.path.join(workdir, "profile")
+        self.want = profile_steps
+        self.device = torch.device(device)
+        self.prof = None
+        self.seen = 0  # host batches of this run so far
+        self.traced = 0
+        self.done = not profile_steps
+
+    def before_step(self) -> None:
+        if self.done or self.prof is not None or self.seen < 1:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.__enter__()
+
+    def after_step(self, n_in: int) -> None:
+        self.seen += n_in
+        if self.prof is None:
+            return
+        self.traced += n_in
+        if self.traced >= self.want:
+            self.finish()
+
+    def finish(self) -> None:
+        """Stop and write the trace (at the epoch's end with what it has)."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        self.prof, self.done = None, True
+        logger.info("profiler trace of %d of %d requested host batches "
+                    "written to %s", self.traced, self.want, self.dir)
+
+    def close(self) -> None:
+        """Stop a trace that a failed run left open, writing nothing."""
+        if self.prof is not None:
+            self.prof.__exit__(None, None, None)
+            self.prof = None
 
 
 def eval_packing_builder(cfg: Config, dataset, batch_size: int):
@@ -253,11 +380,14 @@ def train(cfg: Config, workdir: str,
           eval_language: bool = True,
           debug_nans: bool = False,
           resume_from: Optional[str] = None,
-          device=None) -> Dict:
+          device=None, tensorboard: bool = True,
+          profile_steps: int = 0) -> Dict:
     """Train on ``device`` (the card unless ``"cpu"``).  Returns
     ``dict(best_cider, history, state, model, steps)``, ``steps`` holding
     each optimizer step of this run as ``{"step", "loss", "grad_norm"}``
-    (the loss summed over an accumulation group)."""
+    (the loss summed over an accumulation group).  ``tensorboard`` writes
+    svpc_tpu's scalars under ``workdir`` when the package is there;
+    ``profile_steps`` > 0 traces that many host batches (``StepProfiler``)."""
     check_supported(cfg)
     device = resolve_device(device)
     if debug_nans:  # the reference's always-on anomaly detection
@@ -362,7 +492,10 @@ def train(cfg: Config, workdir: str,
         os.replace(prog_sidecar + ".tmp", prog_sidecar)
 
     steps = []
-    with _open_log(os.path.join(workdir, "train.log.csv"),
+    tb = TBWriter(workdir, tensorboard)
+    profiler = StepProfiler(workdir, profile_steps, device)
+    with contextlib.closing(tb), contextlib.closing(profiler), \
+            _open_log(os.path.join(workdir, "train.log.csv"),
                    "epoch,loss,ppl,accuracy\n", resumed, start_epoch) \
             as train_log, \
             _open_log(os.path.join(workdir, "valid.log.csv"),
@@ -374,7 +507,7 @@ def train(cfg: Config, workdir: str,
             metrics = _train_epoch(state, cfg, train_ds, epoch, skip,
                                    resume_sums if skip else None,
                                    max_steps_per_epoch, device, save_last,
-                                   steps)
+                                   steps, profiler)
             train_m = (aggregate_metrics(metrics) if metrics else
                        dict(loss_per_word=float("nan"), acc=float("nan")))
             if train_m.get("nonfinite_skipped"):
@@ -385,6 +518,9 @@ def train(cfg: Config, workdir: str,
                         ppl, 100 * train_m["acc"], time.time() - t0)
             train_log.write(f"{epoch},{train_m['loss_per_word']:.5f},"
                             f"{ppl:.5f},{100 * train_m['acc']:.3f}\n")
+            niter = state.step
+            tb.scalar("Train/Loss", train_m["loss_per_word"], niter)
+            tb.scalar("Train/Acc", train_m["acc"], niter)
 
             # teacher-forced validation, then the greedy decode and its
             # language metrics, on the EMA weights (the attention kernel's
@@ -413,6 +549,12 @@ def train(cfg: Config, workdir: str,
                             "re4 %.2f", epoch, 100 * lang.get("METEOR", 0),
                             100 * lang["Bleu_4"], 100 * lang["CIDEr"],
                             100 * lang["re4"])
+                tb.scalar("Val/METEOR", 100 * lang.get("METEOR", 0), niter)
+                tb.scalar("Val/Bleu_4", 100 * lang["Bleu_4"], niter)
+                tb.scalar("Val/CIDEr", 100 * lang["CIDEr"], niter)
+                tb.scalar("Val/Re4", 100 * lang["re4"], niter)
+            tb.scalar("Val/Loss", val_m["loss_per_word"], niter)
+            tb.scalar("Val/Acc", val_m["acc"], niter)
             vppl = math.exp(min(val_m["loss_per_word"], 100))
             valid_log.write(f"{epoch},{val_m['loss_per_word']:.5f},"
                             f"{vppl:.5f},{100 * val_m['acc']:.3f},"
@@ -461,15 +603,19 @@ def train(cfg: Config, workdir: str,
 
 def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,
                  skip: int, resume_sums, max_steps: Optional[int], device,
-                 save_last, steps) -> list:
+                 save_last, steps, profiler: StepProfiler) -> list:
     """One epoch's optimizer steps; returns its metric list (headed by
     ``resume_sums``, the sums of the batches a resumed epoch skips) and
     appends ``{"step", "loss", "grad_norm"}`` to ``steps`` per step.
 
     The shuffle is deterministic in (seed, epoch): skipping the batches a
     mid-epoch checkpoint already trained reproduces the uninterrupted
-    trajectory exactly."""
+    trajectory exactly.  ``epoch_steps`` counts host batches: a stacked
+    group of ``steps_per_dispatch`` K carries K x ``grad_accum_steps`` of
+    them (the epoch's tail fewer), and the step cap applies at the source,
+    before grouping, so no group overshoots it."""
     accum = max(1, cfg.train.grad_accum_steps)
+    spd = cfg.train.steps_per_dispatch
     ckpt_every = cfg.train.checkpoint_every_steps
     metrics = [resume_sums] if resume_sums else []
     host_iter = train_ds.batches(
@@ -478,14 +624,26 @@ def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,
         skip=skip)
     if max_steps:
         host_iter = itertools.islice(host_iter, max(0, max_steps - skip))
+    if spd > 1:
+        host_iter = group_stack_batches(host_iter, spd, cfg.model.max_t_len,
+                                        accum=accum)
     batch_iter = prefetch_to_device(host_iter, device, size=2,
                                     feature_dtype=state.model.compute_dtype)
     n_micro, group_loss = 0, 0.0
     epoch_steps = skip
     try:
         for batch, _ in batch_iter:
+            profiler.before_step()
             step_at = state.step
-            if accum == 1:
+            n_in = 1
+            if spd > 1:
+                m = multi_train_step(state, batch, cfg)
+                lead = next(iter(batch.values())).shape
+                n_in = lead[0] * (lead[1] if accum > 1 else 1)
+                steps.extend({"step": step_at + i, "loss": m["loss"][i],
+                              "grad_norm": m["grad_norm"][i]}
+                             for i in range(lead[0]))
+            elif accum == 1:
                 m = train_step(state, batch, cfg)
             else:
                 # microbatch generators fold in (step, index)
@@ -496,15 +654,19 @@ def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,
                     m.update(apply_step(state, cfg))
                     n_micro = 0
             metrics.append(m)
-            group_loss = group_loss + m["loss"]
-            if "grad_norm" in m:
-                steps.append({"step": step_at, "loss": group_loss,
-                              "grad_norm": m["grad_norm"]})
-                group_loss = 0.0
-            epoch_steps += 1
-            if ckpt_every and n_micro == 0 \
-                    and epoch_steps % (ckpt_every * accum) == 0:
-                # mid-epoch checkpoint every ckpt_every optimizer steps
+            if spd == 1:
+                group_loss = group_loss + m["loss"]
+                if "grad_norm" in m:
+                    steps.append({"step": step_at, "loss": group_loss,
+                                  "grad_norm": m["grad_norm"]})
+                    group_loss = 0.0
+            epoch_steps += n_in
+            profiler.after_step(n_in)
+            period = ckpt_every * accum
+            if ckpt_every and n_micro == 0 and \
+                    epoch_steps // period > (epoch_steps - n_in) // period:
+                # mid-epoch checkpoint when the host batches cross a
+                # multiple of ckpt_every optimizer steps
                 save_last(epoch - 1, epoch_steps, epoch, metrics)
             if max_steps and epoch_steps >= max_steps:
                 break
@@ -517,4 +679,5 @@ def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,
         metrics.append(apply_m)
         steps.append({"step": step_at, "loss": group_loss,
                       "grad_norm": apply_m["grad_norm"]})
+    profiler.finish()
     return metrics

@@ -11,6 +11,12 @@ from one ``torch.Generator`` seeded from ``(seed, step)`` (and the
 microbatch under accumulation), as svpc_tpu folds its key by
 ``state.step``: a resumed run draws what an uninterrupted one would have.
 The streams differ from JAX's, a seed-like difference.
+
+``multi_train_step`` is the counterpart of svpc_tpu's
+``make_multi_train_step``: one call runs K optimizer steps over a batch
+stacked on the device (data/packing.py::stack_batches), each step what
+``train_step`` (or, under accumulation, ``accum_train_step``) does on its
+slice, and returns the metrics stacked (K,) per key.
 """
 
 from __future__ import annotations
@@ -113,6 +119,40 @@ def train_step(state: TrainState, batch, cfg: Config) -> Dict:
     return m
 
 
+def accum_train_step(state: TrainState, batches, cfg: Config) -> Dict:
+    """ONE optimizer step over the A microbatches of ``batches`` (leading
+    axis A): A ``grad_step``s, microbatch ``i`` drawing from
+    ``step_generator(device, seed, state.step, i)``, then one
+    ``apply_step``; the metrics summed over the microbatches.  The
+    counterpart of svpc_tpu's ``make_accum_train_step``: the same draws,
+    sums and guard as the loop's unfused accumulation, so a partial
+    epoch-tail group (a shorter leading axis) is its partial flush."""
+    device = next(iter(state.params.values())).device
+    n = next(iter(batches.values())).shape[0]
+    step = state.step
+    ms = [grad_step(state, {k: v[i] for k, v in batches.items()}, cfg,
+                    step_generator(device, cfg.train.seed, step, i))
+          for i in range(n)]
+    metrics = {k: torch.stack([torch.as_tensor(m[k]) for m in ms]).sum(0)
+               for k in ms[0]}
+    metrics.update(apply_step(state, cfg))
+    return metrics
+
+
+def multi_train_step(state: TrainState, batches, cfg: Config) -> Dict:
+    """K optimizer steps over a stacked batch (leading axis K; (K, A, ...)
+    with ``grad_accum_steps`` > 1): step k runs ``train_step`` (or
+    ``accum_train_step``) on slice k, exactly as K separate calls would.
+    Returns each metric stacked (K,); ``aggregate_metrics`` sums them."""
+    step_fn = (accum_train_step if cfg.train.grad_accum_steps > 1
+               else train_step)
+    k_steps = next(iter(batches.values())).shape[0]
+    ms = [step_fn(state, {k: v[i] for k, v in batches.items()}, cfg)
+          for i in range(k_steps)]
+    return {k: torch.stack([torch.as_tensor(m[k]) for m in ms])
+            for k in ms[0]}
+
+
 @torch.no_grad()
 def eval_step(model, batch, cfg: Config,
               generator: Optional[torch.Generator]) -> Dict:
@@ -124,10 +164,13 @@ def eval_step(model, batch, cfg: Config,
 
 
 def sum_metrics(metric_list) -> Dict[str, float]:
-    """Per-key sums, in list order, as Python floats."""
+    """Per-key sums, in list order, as Python floats; a value may be a
+    stacked (K,) tensor of ``multi_train_step``, summed in float64."""
     sums: Dict[str, float] = {}
     for m in metric_list:
         for k, v in m.items():
+            if isinstance(v, torch.Tensor) and v.dim():
+                v = v.double().sum()
             sums[k] = sums.get(k, 0.0) + float(v)
     return sums
 

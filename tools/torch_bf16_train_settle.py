@@ -30,10 +30,11 @@ the port is inside it.  Each step line also holds one update of the port
 from svpc_tpu's whole state of that step (parameters, bfloat16 moments,
 optimizer step, bfloat16 EMA shadow) against svpc_tpu's update from the
 same state: the gradients, their norm and every updated tensor, in the
-band of svpc_tpu's own bfloat16 - float32 gap (``update_check``).  Then one
-line with each package's count of empty val sentences (and the port's
-count decoding svpc_tpu's trained weights) and the first step that left
-its band: the losses at svpc_tpu's weights ("synced"), the losses on the
+band of svpc_tpu's own bfloat16 - float32 gap (``update_check``), and
+each tensor outside its own band.  Then one line with each package's count of empty val sentences (and the port's
+count decoding svpc_tpu's trained weights), each gradient tensor that
+left its own band at some step (``grads_above_band``) and the first step
+that left its band: the losses at svpc_tpu's weights ("synced"), the losses on the
 port's own trajectory ("own") and the update ("update"); null: none did.
 """
 
@@ -193,18 +194,23 @@ def update_check(pstate, pgrads, pm, jnext16, jm16, jnext32, cfg) -> dict:
             ("ema", pstate.ema_shadow, port(jnext16.ema_shadow),
              port(jnext32.ema_shadow))):
         errs, gaps, size, worst = [], [], 0, (-1.0, "", 0.0, 0.0, 0.0)
+        above = {}
         for n, t in got.items():
             errs.append(t.detach().float().numpy() - w16[n])
             gaps.append(w32[n] - w16[n])
             size += errs[-1].size
             e, g, w = norm(errs[-1:]), norm(gaps[-1:]), norm([w16[n]])
-            worst = max(worst, (e / (2.0 * g + 1e-5 * math.sqrt(
-                errs[-1].size)), n, e, g, w))
+            r = e / (2.0 * g + 1e-5 * math.sqrt(errs[-1].size))
+            worst = max(worst, (r, n, e, g, w))
+            if r > 1.0:
+                above[n] = r
         ratio = norm(errs) / (2.0 * norm(gaps) + 1e-5 * math.sqrt(size))
         # the worst tensor: its ratio, and |port - svpc_tpu|, |gap| and
         # svpc_tpu's |tensor| itself
         res[key] = {"ratio": ratio, "in_band": ratio <= 1.0,
                     "worst_tensor": worst[1], "worst_tensor_ratio": worst[0],
+                    # every tensor outside its own band, by its ratio
+                    "tensors_above_band": above,
                     "worst_tensor_norms": {"port_err": worst[2],
                                            "gap": worst[3],
                                            "svpc_tpu": worst[4]}}
@@ -442,6 +448,13 @@ def settle(width: str = "full", epochs: int = 2, steps_per_epoch: int = 6,
                                for k in ("grads", "params", "m", "v",
                                          "ema")},
               "grad_norm_first_step": steps[0]["update"]["grad_norm"],
+              # each gradient tensor that left its own band at some step,
+              # by its worst ratio (the gate is the group's norm)
+              "grads_above_band": {
+                  n: max(r["update"]["grads"]["tensors_above_band"].get(
+                      n, 0.0) for r in steps)
+                  for r0 in steps
+                  for n in r0["update"]["grads"]["tensors_above_band"]},
               "sentences_equal": sum(
                   a["sentence"] == b["sentence"]
                   for v in jax_sub["results"]
