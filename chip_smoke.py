@@ -137,6 +137,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
   export   cli.export_checkpoint --ema of the train phase's checkpoint to
            a reference .chkpt: cli.caption on it (--torch_checkpoint) and
            on the trainer checkpoint give the same sentences.
+  parallel (after train_knobs) the dp x tp mesh of svpc_torch.parallel at
+           full vivt width on the train fixture (vocabulary padded to
+           952), f32, each part's ranks in processes of
+           svpc_torch.parallel.worker with a timeout; two ranks share
+           cuda:0 over gloo (NCCL refuses two ranks on one card), so the
+           times are one card's, not a scaling figure.  (a) dp2 ZeRO-1:
+           two train steps with dropout on against the same steps in this
+           process on the same global batches (losses within 1e-5
+           relative, parameters and EMA within rtol 2e-4 / atol 1e-5),
+           each rank's bytes of m, v and EMA against the prediction (and
+           without ZeRO-1) and its peak memory; then train.loop.train for
+           3 steps with validation, language eval and checkpoints, whose
+           rank-0 checkpoint in a one-process cli.evaluate gives the
+           captions the run's validation decoded.  (b) tp2: greedy decode
+           of one 16-video val batch, tokens equal to the one-process
+           decode; every attention call at 6 heads launches the kernel,
+           and each form is held against attention_plain (f32 1e-5) and
+           timed.  (c) NCCL at world size 1: the collectives forward and
+           backward on the card, and a dp1 x tp1 train step through the
+           mesh path equal to the plain step (1e-6 relative).  The
+           kernels phase also times the serving shapes at tp=2 (H=384, 6
+           heads).
   dump_memories
            cli.dump_memories on the train phase's checkpoint over the val
            split on the card (pickle keys, finite), every attention form
@@ -198,6 +220,11 @@ BEAM_SHAPES = [
     ("beam2_cross_cached", 192, 1, 3, "ones", NUM_HEADS, 0),
 ]
 BEAM_LAUNCHES = {"beam2_self_cached": 42, "beam2_cross_cached": 42}
+# the serving shapes on one rank of a tp=2 mesh: 6 of the 12 heads, H=384
+# (dh=64); launches per decoded batch on each rank are TP2_LAUNCHES
+TP2_SHAPES = [("tp2_" + name, n, lq, lk, form, NUM_HEADS // 2, 0)
+              for name, n, lq, lk, form, _, _ in SERVING_SHAPES[:4]]
+TP2_LAUNCHES = {"tp2_" + s[0]: s[6] for s in SERVING_SHAPES[:4]}
 # off the serving path: several ring stages of keys, a sequence that sees
 # no key, and the widest head the kernel takes (dh=128: its f32 tile
 # blocks hold 64 query rows, its bf16 decode step spans two chunks of
@@ -317,9 +344,9 @@ def phase_build():
 # kernels
 # ---------------------------------------------------------------------- #
 
-def _attention_inputs(n, lq, lk, form, dtype, gen):
+def _attention_inputs(n, lq, lk, form, dtype, gen, hidden=HIDDEN):
     dev = "cuda"
-    q, k, v = (torch.randn(n, length, HIDDEN, generator=gen)
+    q, k, v = (torch.randn(n, length, hidden, generator=gen)
                .to(dev, dtype) for length in (lq, lk, lk))
     if form == "padding":   # [CLS] frames [SEP] then padding, per sequence
         valid = torch.randint(2, lk + 1, (n, 1), generator=gen)
@@ -342,7 +369,7 @@ def _attention_inputs(n, lq, lk, form, dtype, gen):
 
 def _bound_ms(q, k, v, mask, n, lq, lk):
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, mask, q))
-    ops = 4 * n * lq * lk * HIDDEN  # two products a head, 2 ops a MAC
+    ops = 4 * n * lq * lk * q.shape[-1]  # two products a head, 2 ops a MAC
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ACCURATE_PEAK_OPS_PER_S[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -354,7 +381,7 @@ def phase_kernels(seed: int):
     from svpc_torch.ops.attention import DECODE_MAX_LQ, LAUNCHES, _plan, \
         attention_plain, fused_attention
 
-    cases = SERVING_SHAPES + BEAM_SHAPES + EXTRA_SHAPES + [
+    cases = SERVING_SHAPES + BEAM_SHAPES + TP2_SHAPES + EXTRA_SHAPES + [
         ("threshold_decode", 96, DECODE_MAX_LQ, 22, "causal", NUM_HEADS, 0),
         ("threshold_tile", 96, DECODE_MAX_LQ + 1, 22, "causal", NUM_HEADS,
          0)]
@@ -362,8 +389,10 @@ def phase_kernels(seed: int):
     rows = []
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for name, n, lq, lk, form, nh, per_batch in cases:
-            q, k, v, mask = _attention_inputs(n, lq, lk, form, dtype, gen)
-            dh = HIDDEN // nh
+            hidden = HIDDEN // 2 if name.startswith("tp2_") else HIDDEN
+            q, k, v, mask = _attention_inputs(n, lq, lk, form, dtype, gen,
+                                              hidden)
+            dh = hidden // nh
             path = _plan(n, lq, nh, dh, dtype).path
             before = LAUNCHES["fused_attention." + path]
             got = fused_attention(q, k, v, mask, nh)
@@ -384,6 +413,7 @@ def phase_kernels(seed: int):
                    "path": path,
                    "launches_per_batch": per_batch,
                    "launches_per_beam_batch": BEAM_LAUNCHES.get(name, 0),
+                   "launches_per_tp2_batch": TP2_LAUNCHES.get(name, 0),
                    "max_abs_err": err, "tol": row_tol}
             if not (math.isfinite(err) and err <= row_tol):
                 fail("kernels", f"fused_attention disagrees with "
@@ -426,13 +456,23 @@ def _per_batch(rows, dtype):
     per_beam = lambda key: sum(
         r[key] * (r["launches_per_beam_batch"] or r["launches_per_batch"])
         for r in rs if r["launches_per_beam_batch"] or r in encoders)
+    per_tp2 = lambda key: sum(r[key] * r["launches_per_tp2_batch"]
+                              for r in rs)
+    tp2_bytes_ms = per_tp2("bytes_bound_ms")
     return {"max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
             "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= bound else "operations",
             "library_ms": per_batch("library_ms"),
             "beam2_batch": {key: per_beam(key) for key in (
-                "ms", "plain_ms", "bound_ms", "library_ms")}}
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            "tp2_batch_per_rank": dict(
+                {key: per_tp2(key) for key in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")},
+                bound_by=("bytes" if tp2_bytes_ms >= per_tp2("bound_ms")
+                          else "operations"),
+                max_abs_err=max(r["max_abs_err"] for r in rs
+                                if r["launches_per_tp2_batch"]))}
 
 
 def kernel_summary(rows, phase_launches):
@@ -2298,6 +2338,243 @@ def phase_dump_memories(fx, train_dir, seed):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# parallel
+# ---------------------------------------------------------------------- #
+
+# f32 m, v and EMA of the 40,144,393 parameters: 481,732,716 B on a rank
+# that holds them whole; at dp2 ZeRO-1 each rank holds half of every leaf
+# but the five with no even dim (9 elements), 240,866,412 B
+ZERO1_PREDICTED_BYTES = {"whole": 481_732_716, "dp2_zero1": 240_866_412}
+
+
+def _rank_rows(out_dir, world):
+    rows = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def _worst_close(got, want, rtol, atol):
+    """max over tensors of max(|got - want| - atol - rtol |want|): <= 0
+    when every element is within the tolerance."""
+    return max((got[n].float().cpu() - w.float().cpu()).abs()
+               .sub(atol + rtol * w.float().cpu().abs()).max().item()
+               for n, w in want.items())
+
+
+def _parallel_steps(cfg, seed, base, on_card):
+    """Two train steps (dropout on) at dp2 ZeRO-1 on two gloo ranks of the
+    card, against the same steps in this process on the same global
+    batches from the same init."""
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.parallel.worker import run_job, train_batches, \
+        train_state
+    from svpc_torch.train.step import train_step
+
+    spec = dict(on_card, cfg=cfg.to_dict(), seed=seed, n_steps=2,
+                steps_per_epoch=6, dp=2, tp=1,
+                out=os.path.join(base, "steps"))
+    wall = run_job("steps", spec, 2, timeout=300)
+    res = torch.load(os.path.join(spec["out"], "result.pt"),
+                     weights_only=False)
+    ranks = _rank_rows(spec["out"], 2)
+    # the one-process peak counts what this run allocates (model, moments,
+    # EMA, steps) above what earlier phases left, as a rank's counts its own
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    left = torch.cuda.memory_allocated()
+    model = SVPCModel(cfg.model, torch.Generator().manual_seed(seed))
+    state = train_state(cfg, model.to("cuda"), 6)
+    ref = [train_step(state, to_tensors(b, torch.device("cuda")), cfg)
+           for b in train_batches(cfg, 2, dp=2)]
+    one_peak = torch.cuda.max_memory_allocated() - left
+    losses = [{k: float(m[k]) for k in ("loss", "caption_loss",
+                                        "grad_norm")} for m in ref]
+    rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+              zip(res["losses"], losses) for k in w)
+    worst = {"params": _worst_close(res["state"]["model"], {
+                 n: p.detach() for n, p in state.params.items()},
+                 2e-4, 1e-5),
+             "ema": _worst_close(res["state"]["ema_shadow"],
+                                 state.ema_shadow, 2e-4, 1e-5)}
+    row = {"wall_s": wall, "losses_mesh": res["losses"],
+           "losses_one_process": losses, "loss_max_rel": rel,
+           "loss_tol": 1e-5, "tol_excess": worst,
+           "zero1_bytes": [{"rank": i, **{k: r[k] for k in (
+               "bytes", "bytes_without_zero1", "max_memory_allocated")}}
+               for i, r in enumerate(ranks)],
+           "zero1_bytes_predicted": ZERO1_PREDICTED_BYTES,
+           "one_process_max_memory_allocated": one_peak}
+    bad = []
+    if not rel <= 1e-5:
+        bad.append("dp2 losses")
+    if not max(worst.values()) <= 0:
+        bad.append("dp2 parameters or EMA")
+    for r in ranks:
+        held = sum(r["bytes"].values())
+        whole = sum(r["bytes_without_zero1"].values())
+        if whole != ZERO1_PREDICTED_BYTES["whole"] or \
+                held != ZERO1_PREDICTED_BYTES["dp2_zero1"]:
+            bad.append(f"ZeRO-1 bytes {held} of {whole}")
+    return row, bad
+
+
+def _parallel_loop(cfg, fx, base, on_card):
+    """train.loop.train for one short epoch (3 steps, validation, language
+    eval, checkpoints) at dp2 ZeRO-1 on two gloo ranks of the card; its
+    rank-0 checkpoint in a one-process cli.evaluate gives the captions
+    the run's own validation decoded."""
+    from svpc_torch.cli.evaluate import main as evaluate_main
+    from svpc_torch.parallel.worker import run_job
+
+    out = os.path.join(base, "loop")
+    spec = dict(on_card, cfg=cfg.replace_train(n_epoch=1).to_dict(),
+                max_steps_per_epoch=3, out=out)
+    wall = run_job("train", spec, 2, timeout=300)
+    with open(os.path.join(out, "result.json")) as f:
+        res = json.load(f)
+    with open(os.path.join(out, "greedy_pred_val_epoch0.json")) as f:
+        mesh_sub = json.load(f)
+    ckpt = os.path.join(out, "checkpoint_last")
+    one = evaluate_main(_eval_argv(fx, ckpt) + [
+        "--split", "val", "--val_batch_size", "16",
+        "--output_dir", os.path.join(out, "eval_one_process")])
+    sentences = lambda sub: {v: [e["sentence"] for e in es]
+                             for v, es in sub["results"].items()}
+    differ = [v for v, s in sentences(one["submission"]).items()
+              if sentences(mesh_sub).get(v) != s]
+    ranks = _rank_rows(out, 2)
+    row = {"wall_s": wall, "losses": [s["loss"] for s in res["steps"]],
+           "val": res["history"][0]["val"],
+           "lang": res["history"][0]["lang"],
+           "videos": len(sentences(mesh_sub)),
+           "videos_captioned_differently": differ,
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    bad = []
+    if len(row["losses"]) != 3 or not all(
+            math.isfinite(x) for x in row["losses"]):
+        bad.append("loop losses")
+    if differ or not row["videos"]:
+        bad.append("one-process evaluate captions the checkpoint "
+                   "differently")
+    if not all(r["launches"]["fused_attention.tile"]
+               and r["launches"]["fused_attention.decode"] for r in ranks):
+        bad.append("a kernel path did not launch in a rank's validation")
+    return row, bad, ckpt, [r["launches"] for r in ranks]
+
+
+def _parallel_decode(ckpt, base, on_card):
+    """tp2 greedy decode of one 16-video val batch on two gloo ranks of
+    the card against the one-process decode; every attention of the tp
+    run at 6 heads, its forms held against attention_plain."""
+    import svpc_torch.train.loop as loop
+    from svpc_torch.config import Config
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.decode.greedy import greedy_decode
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.parallel.worker import run_job
+    from svpc_torch.train.state import load_eval_weights
+
+    out = os.path.join(base, "decode")
+    spec = dict(on_card, checkpoint=ckpt, val_batch_size=16, dp=1, tp=2,
+                out=out)
+    wall = run_job("decode", spec, 2, timeout=300)
+    res = torch.load(os.path.join(out, "result.pt"), weights_only=False)
+    ranks = _rank_rows(out, 2)
+    cfg = Config.from_json(ckpt + ".cfg.json").replace_train(
+        val_batch_size=16)
+    model = SVPCModel(cfg.model)
+    model.load_state_dict(load_eval_weights(ckpt), strict=True)
+    model = model.to("cuda").eval()
+    ds = CaptionDataset(cfg, "val", lazy_features=True)
+    dec = loop.make_eval_decoder(model, cfg, ds)
+    batch_np, _ = next(ds.batches(dec["cfg"].train.val_batch_size,
+                                  builder=dec["builder"]))
+    tokens = greedy_decode(model, to_tensors(batch_np,
+                                             torch.device("cuda"))).cpu()
+    real = torch.from_numpy(batch_np["step_mask"]) > 0
+    calls = {("tp2_decode",) + tuple(f["key"][:3]) + (tuple(f["key"][3]),):
+             {"inputs": tuple(t.to("cuda") for t in f["inputs"])
+              + (f["num_heads"],), "calls": f["calls"]}
+             for f in res["forms"]}
+    forms, kernel_bad = _form_rows(calls)
+    row = {"wall_s": wall, "clips": int(real.sum()),
+           "differing_token_positions": int(
+               (res["tokens"] != tokens)[real].sum()),
+           "heads_by_rank": [r["heads"] for r in ranks],
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "forms": forms}
+    bad = list(kernel_bad)
+    if row["differing_token_positions"] or res["tokens"].shape != \
+            tokens.shape:
+        bad.append("tp2 tokens differ from the one-process decode")
+    if any(set(r["heads"]) != {"6"} for r in ranks):
+        bad.append("an attention of the tp2 run did not take 6 heads")
+    if not all(r["launches"]["fused_attention"] == sum(r["heads"].values())
+               for r in ranks):
+        bad.append("a tp2 attention call did not launch the kernel")
+    return row, bad, [r["launches"] for r in ranks]
+
+
+def _parallel_nccl(cfg, seed, base):
+    """NCCL at world size 1: the collectives forward and backward on the
+    card, and a dp1 x tp1 train step through the mesh path equal to the
+    same step without one."""
+    from svpc_torch.parallel.worker import run_job
+
+    out = os.path.join(base, "nccl")
+    spec = dict(device="cuda:0", backend="nccl", cfg=cfg.to_dict(),
+                seed=seed, out=out)
+    wall = run_job("nccl", spec, 1, timeout=300)
+    with open(os.path.join(out, "result.json")) as f:
+        res = json.load(f)
+    bad = []
+    if res["backend"] != "nccl" or not all(res["collectives"].values()):
+        bad.append(f"NCCL collectives {res['collectives']}")
+    step = res["train_step"]
+    if any(abs(step["mesh"][k] - v) > 1e-6 * abs(v)
+           for k, v in step["plain"].items()):
+        bad.append("the dp1 x tp1 mesh step differs from the plain step")
+    return dict(res, wall_s=wall), bad
+
+
+def phase_parallel(seed: int, workdir: str, fx):
+    """The dp x tp mesh of svpc_torch.parallel at full vivt width on the
+    train fixture, f32, each part's ranks in processes of
+    svpc_torch.parallel.worker (each killed at its timeout): two ranks
+    share cuda:0 over gloo (NCCL refuses two ranks on one card), so their
+    times are one card's, not a scaling figure."""
+    t0 = time.perf_counter()
+    base = os.path.join(workdir, "parallel")
+    on_card = dict(device="cuda:0", backend="gloo", timeout_s=300)
+    cfg = _train_cfg(fx).replace_model(vocab_pad_multiple=2) \
+        .replace_train(dp_size=2, zero1=True)
+    row, bad = {"phase": "parallel"}, []
+    row["steps_dp2_zero1"], b = _parallel_steps(cfg, seed, base, on_card)
+    bad += b
+    row["loop_dp2_zero1"], b, ckpt, loop_launches = _parallel_loop(
+        cfg, fx, base, on_card)
+    bad += b
+    row["decode_tp2"], b, decode_launches = _parallel_decode(
+        ckpt, base, on_card)
+    bad += b
+    row["nccl_world1"], b = _parallel_nccl(
+        cfg.replace_train(dp_size=1, zero1=False), seed, base)
+    bad += b
+    launches = {k: sum(l[k] for l in loop_launches + decode_launches)
+                for k in loop_launches[0]}
+    row.update(phase_s=time.perf_counter() - t0, launches=launches,
+               card=card_line())
+    if bad:
+        fail("parallel", f"{bad}: {json.dumps(row, default=str)}")
+    emit(dict(row, ok=True))
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2333,6 +2610,7 @@ def main(argv=None) -> int:
             args.seed, workdir, train_fx)
         phases["train_knobs"] = phase_train_knobs(args.seed, workdir,
                                                   train_fx)
+        phases["parallel"] = phase_parallel(args.seed, workdir, train_fx)
         phases["evaluate"] = phase_evaluate(train_fx, train_dir)
         phases["evaluate_bf16"] = phase_evaluate_bf16(train_fx, train_dir,
                                                       train_dir16)

@@ -1,8 +1,9 @@
 """Shared CLI argument handling and checkpoint loading, from
 svpc_tpu/cli/common.py: the flags every CLI takes (data paths, geometry,
-layout, device), the training flags of ``cli.train``, for what the port's
-trainer supports, and the model loader of the inference CLIs
-(``evaluate``, ``caption``, ``serve``)."""
+layout, device), the mesh flags of ``cli.train`` and ``cli.evaluate``,
+the training flags of ``cli.train``, for what the port's trainer
+supports, and the model loader of the inference CLIs (``evaluate``,
+``caption``, ``serve``)."""
 
 from __future__ import annotations
 
@@ -33,13 +34,41 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="disable clip packing (compute the full padded "
                         "(B, S) step grid like the reference)")
     p.add_argument("--device", default="cuda",
-                   help="'cuda' (default; raises without a card) or 'cpu'")
+                   help="'cuda' (default; raises without a card; under "
+                        "torchrun each rank takes cuda:LOCAL_RANK), "
+                        "'cuda:i' (every rank on card i) or 'cpu'")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="float32: the parity path; bfloat16: activations "
                         "and most products in bfloat16, parameters, "
                         "softmaxes and losses in float32.  A run-time "
                         "choice: any checkpoint loads at either")
+
+
+def add_mesh_args(p: argparse.ArgumentParser, train: bool = False) -> None:
+    """The dp x tp mesh (parallel/mesh.py; one process a rank, started by
+    torchrun with ``--nproc_per_node dp_size * tp_size``), and for
+    ``cli.train`` ZeRO-1, per-rank sharded data and the pipeline axis
+    svpc_tpu has (not ported: ``--pp_size > 1`` is refused)."""
+    p.add_argument("--dp_size", type=int, default=1)
+    p.add_argument("--tp_size", type=int, default=1,
+                   help="tensor-parallel axis (Megatron attention/FFN/vocab "
+                        "sharding; the vocabulary tables are zero-padded to "
+                        "a tp multiple)")
+    if not train:
+        return
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the Adam moments and the EMA shadow "
+                        "over dp (per-rank optimizer memory / dp; numerics "
+                        "unchanged: the gradients stay whole, so both norm "
+                        "clips see full gradients)")
+    p.add_argument("--multihost_sharded_data", action="store_true",
+                   help="each rank builds only its own dp block of every "
+                        "training batch (byte-equal to that block of the "
+                        "global build; needs the packed layout)")
+    p.add_argument("--pp_size", type=int, default=1,
+                   help="svpc_tpu's pipeline-parallel stages; not ported "
+                        "yet, so only 1 is accepted")
 
 
 def config_from_args(args) -> Config:
@@ -55,14 +84,22 @@ def config_from_args(args) -> Config:
             model_mode=MODEL_TYPE_TO_MODE[args.model_type],
             max_n_sen=args.max_n_sen, max_t_len=args.max_t_len,
             max_v_len=args.max_v_len, max_i_len=args.max_i_len,
-            compute_dtype=args.compute_dtype),
+            compute_dtype=args.compute_dtype,
+            vocab_pad_multiple=max(1, getattr(args, "tp_size", 1))),
         data=DataConfig(
             dset_name=args.dset_name, data_dir=args.data_dir,
             video_feature_dir=args.video_feature_dir,
             duration_file=args.duration_file,
             word2idx_path=args.word2idx_path,
             verb2idx_path=args.verb2idx_path),
-        train=TrainConfig(pack_clips=not args.no_pack_clips),
+        train=TrainConfig(
+            pack_clips=not args.no_pack_clips,
+            dp_size=getattr(args, "dp_size", 1),
+            tp_size=getattr(args, "tp_size", 1),
+            zero1=getattr(args, "zero1", False),
+            multihost_sharded_data=getattr(args, "multihost_sharded_data",
+                                           False),
+            pp_size=getattr(args, "pp_size", 1)),
     )
     cfg.model.validate()
     return cfg

@@ -14,7 +14,10 @@ ROUGE-L, CIDEr-D, re1-re4, caption statistics), optionally ingredient F1.
 
 Writes ``{greedy,beam{K},beam{K}_n{n}}_pred_{split}.json`` and
 ``metrics_{split}.json`` under ``--output_dir``.  Runs on the card unless
-``--device cpu``.
+``--device cpu``.  On a mesh (``torchrun --nproc_per_node D*T -m
+svpc_torch.cli.evaluate ... --dp_size D --tp_size T``) each rank holds its
+tp shards and decodes its dp block of every batch; the tokens are
+gathered, every rank scores the same submission and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -24,15 +27,16 @@ import json
 import logging
 import os
 
-from svpc_torch.cli.common import (add_common_args, config_from_args,
-                                   load_eval_model)
+from svpc_torch.cli.common import (add_common_args, add_mesh_args,
+                                   config_from_args, load_eval_model)
 from svpc_torch.data.anet import SPLIT_FILES, para_reference_files
 from svpc_torch.data.pipeline import CaptionDataset
 from svpc_torch.evaluation import evaluate_submission
 from svpc_torch.evaluation.ingredient_f1 import (build_ingredient_dictionary,
                                                  ingredient_f1)
 from svpc_torch.precision import resolve_device
-from svpc_torch.train.loop import run_greedy_eval, run_nbest_eval
+from svpc_torch.parallel.mesh import rank_device
+from svpc_torch.train.loop import mesh_for, run_greedy_eval, run_nbest_eval
 
 logger = logging.getLogger(__name__)
 
@@ -40,6 +44,7 @@ logger = logging.getLogger(__name__)
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--split", default="test", choices=["val", "test"])
     p.add_argument("--output_dir", required=True)
@@ -92,13 +97,16 @@ def main(argv=None) -> dict:
         p.error(f"--n_best {args.n_best} cannot exceed "
                 f"--beam_size {args.beam_size} (a beam of K carries only "
                 "K ranked hypotheses)")
-    device = resolve_device(args.device)
     cfg = config_from_args(args).replace_train(
         val_batch_size=args.val_batch_size)
+    mesh = mesh_for(cfg, args.device)
+    device = (resolve_device(args.device) if mesh is None
+              else rank_device(args.device))
+    main_rank = mesh is None or mesh.is_main
     cfg, model, ds = load_eval_model(
         cfg, args, lambda c: CaptionDataset(c, args.split,
                                             lazy_features=True))
-    model = model.to(device)
+    model = model.shard(mesh).to(device)
     os.makedirs(args.output_dir, exist_ok=True)
 
     if args.use_beam and args.n_best > 1:
@@ -111,9 +119,10 @@ def main(argv=None) -> dict:
         decode_name = f"beam{args.beam_size}" if args.use_beam else "greedy"
     sub_path = os.path.join(args.output_dir,
                             f"{decode_name}_pred_{args.split}.json")
-    with open(sub_path, "w") as f:
-        json.dump(submission, f, indent=2)
-    logger.info("submission written to %s", sub_path)
+    if main_rank:
+        with open(sub_path, "w") as f:
+            json.dump(submission, f, indent=2)
+        logger.info("submission written to %s", sub_path)
 
     metrics = {}
     ref_paths = [os.path.join(cfg.data.data_dir, f)
@@ -127,8 +136,9 @@ def main(argv=None) -> dict:
             submission, cfg.data.data_dir, args.split)
 
     metrics_path = os.path.join(args.output_dir, f"metrics_{args.split}.json")
-    with open(metrics_path, "w") as f:
-        json.dump(metrics, f, indent=2, default=str)
+    if main_rank:
+        with open(metrics_path, "w") as f:
+            json.dump(metrics, f, indent=2, default=str)
     logger.info("metrics: %s", json.dumps(
         {k: v for k, v in metrics.items() if isinstance(v, (int, float))},
         indent=2))
@@ -138,4 +148,7 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
+    from svpc_torch.parallel.mesh import close_distributed
+
     main()
+    close_distributed()

@@ -15,6 +15,17 @@ epoch when the checkpoint was taken mid-epoch.  TensorBoard scalars land
 in ``--workdir`` too (``--no_tensorboard``: csv logs only), and
 ``--profile_steps N`` writes a ``torch.profiler`` trace of N steady-state
 host batches to ``<workdir>/profile/trace.json``.
+
+Data- and tensor-parallel (one process a rank, rank 0 writing)::
+
+    torchrun --nproc_per_node N -m svpc_torch.cli.train ... \
+      --dp_size D --tp_size T [--zero1] [--multihost_sharded_data]
+
+with N = D * T; each rank runs on ``cuda:LOCAL_RANK`` over NCCL (gloo with
+``--device cpu``).  Across hosts torchrun's own rendezvous does what
+svpc_tpu's ``--multihost`` does (``--nnodes``, ``--node_rank``,
+``--rdzv_endpoint``); no flag of this CLI is needed.  ``--pp_size > 1``
+(svpc_tpu's GPipe) is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -22,8 +33,8 @@ from __future__ import annotations
 import argparse
 import logging
 
-from svpc_torch.cli.common import (add_common_args, add_train_args,
-                                   train_config_from_args)
+from svpc_torch.cli.common import (add_common_args, add_mesh_args,
+                                   add_train_args, train_config_from_args)
 from svpc_torch.train.loop import train
 
 
@@ -32,6 +43,7 @@ def main(argv=None):
                         format="%(asctime)-10s: %(message)s")
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_args(p)
+    add_mesh_args(p, train=True)
     add_train_args(p)
     p.add_argument("--workdir", required=True)
     p.add_argument("--max_steps_per_epoch", type=int, default=None)
@@ -51,6 +63,10 @@ def main(argv=None):
                         "step; a mid-epoch checkpoint resumes inside its "
                         "epoch exactly)")
     args = p.parse_args(argv)
+    if args.pp_size > 1:
+        p.error("--pp_size > 1: pipeline parallelism (svpc_tpu's GPipe) is "
+                "not ported to svpc_torch yet (ROADMAP.md, Queue 1); use "
+                "--dp_size / --tp_size")
     cfg = train_config_from_args(args)
     if args.debug:
         args.max_steps_per_epoch = 1
@@ -63,4 +79,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from svpc_torch.parallel.mesh import close_distributed
+
     main()
+    close_distributed()

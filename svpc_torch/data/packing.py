@@ -23,7 +23,8 @@ sliced to the batch max valid length rounded up to a bucket.
 
 The port's copy of svpc_tpu/data/packing.py (same layout, same numbers),
 with ``repad_packed`` / ``stack_batches`` for the K-steps-per-call train
-step; the multi-host helpers wait for the parallelism slice.
+step, and ``pack_examples(only_shards=...)`` for the trainer's per-rank
+sharded data (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -144,17 +145,26 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
                   clip_multiple: int = 16,
                   v_multiple: int = 16,
                   dp_shards: int = 1,
-                  fill_workers: int = 0) -> Batch:
+                  fill_workers: int = 0,
+                  only_shards=None) -> Batch:
     """Examples -> packed batch directly, skipping the dense (B, S, ...)
     intermediate: per-video arrays stack (small), per-clip rows copy
     straight from each example into the final buffers.  Geometry and
     semantics are identical to pack_batch.  ``fill_workers > 1`` fills the
     videos' features on that many threads (the native fill releases the
-    GIL)."""
+    GIL).
+
+    ``only_shards`` (dp-shard indices) builds only those shards' blocks,
+    the per-video rows, clip rows and feature fills; the rest stays
+    zero / fill-valued.  The shape (N, v_len) still comes from every
+    example's token arrays (no features), so every rank derives the same
+    global shape, and an owned block is byte-equal to the same block of
+    the full build (``--multihost_sharded_data``, parallel/mesh.py)."""
     B = batch_size or len(examples)
     if B % dp_shards:
         raise ValueError(f"batch {B} not divisible by dp_shards={dp_shards}")
     Bs = B // dp_shards
+    owned = frozenset(only_shards) if only_shards is not None else None
     first = examples[0].arrays
     L = first["input_ids"].shape[-1]
     Lv = L - max_t_len
@@ -191,6 +201,8 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
         proto = first[k]
         dst = np.zeros((B,) + proto.shape, proto.dtype)
         for b, e in enumerate(examples):
+            if owned is not None and b // Bs not in owned:
+                continue
             dst[b] = e.arrays[k]
         out[k] = dst
 
@@ -213,6 +225,8 @@ def pack_examples(examples, max_t_len: int, batch_size: Optional[int] = None,
         if not n:
             continue
         g = b // Bs
+        if owned is not None and g not in owned:
+            continue
         lo = g * N + sum(steps[g * Bs:b])
         out["clip_video"][lo:lo + n] = b
         out["clip_step"][lo:lo + n] = np.arange(n)
@@ -324,14 +338,19 @@ def stack_batches(batches, max_t_len: int, dp_shards: int = 1) -> Batch:
             for k in batches[0]}
 
 
-def fixed_clip_budget(dataset, batch_size: int, multiple: int = 16) -> int:
-    """Max real-clip count over the dataset's deterministic (unshuffled)
-    batch partition, rounded up to ``multiple``: every eval batch then has
-    ONE packed shape."""
+def fixed_clip_budget(dataset, batch_size: int, multiple: int = 16,
+                      dp_shards: int = 1) -> int:
+    """Max real-clip count (per dp shard) over the dataset's deterministic
+    (unshuffled) batch partition, rounded up to ``multiple``: every eval
+    batch then has ONE packed shape."""
     counts = [min(len(e["sentences"]), dataset.num_steps)
               for e in dataset.data]
     if not counts:
         return multiple
-    sums = [sum(counts[i:i + batch_size])
-            for i in range(0, len(counts), batch_size)]
+    group = max(1, batch_size // dp_shards)
+    sums = []
+    for i in range(0, len(counts), batch_size):
+        window = counts[i:i + batch_size]
+        sums.extend(sum(window[j:j + group])
+                    for j in range(0, len(window), group))
     return _round_up(max(sums), multiple)

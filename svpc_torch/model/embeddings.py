@@ -17,6 +17,8 @@ from torch import nn
 
 from svpc_torch.config import ModelConfig
 from svpc_torch.model.layers import LayerNorm, Linear, _dropout
+from svpc_torch.parallel.collectives import reduce_from_tp
+from svpc_torch.parallel.mesh import module_tp_dim
 from svpc_torch.precision import check_compute_dtype
 
 
@@ -42,9 +44,19 @@ def lookup(embedding: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
     On the card the embedding's own backward is not bitwise repeatable
     when rows repeat many times (the 4-row token-type table, looked up at
     every video frame, gave two identical steps different gradients), which
-    made a resumed run drift from an uninterrupted one."""
+    made a resumed run drift from an uninterrupted one.
+
+    A table split over tp holds this rank's rows: ids outside them get a
+    zero one-hot row, and the partial lookups are all-reduced."""
     w = embedding.weight
-    return F.one_hot(ids, w.shape[0]).to(w.dtype) @ w
+    if module_tp_dim(embedding) != 0:
+        return F.one_hot(ids, w.shape[0]).to(w.dtype) @ w
+    n = w.shape[0]
+    local = ids - embedding.mesh.tp_index * n
+    mine = (local >= 0) & (local < n)
+    onehot = F.one_hot(torch.where(mine, local, 0), n).to(w.dtype) \
+        * mine[..., None].to(w.dtype)
+    return reduce_from_tp(onehot @ w, embedding.mesh.tp_group)
 
 
 def add_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ PyTorch ``.chkpt`` files.
 svpc_tpu/model/import_torch.py:build_mapping (JAX parameter path ->
 reference state-dict name, "T" where a flax ``(in, out)`` kernel transposes
 to a torch ``(out, in)`` weight).  The port's module tree uses exactly the
-reference names, so a mapped state dict loads with ``strict=True``.
+reference names, so a mapped state dict loads with ``strict=True``; on a
+tp mesh ``SVPCModel.load_full_state_dict`` keeps each rank's shards of it
+(svpc_tpu's ``shard_params`` after the import).
 """
 
 from __future__ import annotations

@@ -20,6 +20,15 @@ float32 (ops/attention.py), and the decode caches keep the compute dtype.
 With ``cfg.remat`` the encoder and decoder stacks recompute each layer on
 the backward pass (``remat_layer``), svpc_tpu's ``nn.remat``; the values
 are unchanged.
+
+Under tensor parallelism (``SVPCModel.shard``, parallel/mesh.py) a module
+holds its tp shards and its ``tp_dims`` say which: a ``Linear`` whose
+weight is split on dim 0 is column-parallel (Q/K/V, the FFN
+intermediate, the vocab projection), on dim 1 row-parallel (the
+attention output and FFN output projections, all-reduced), a
+``MultiHeadAttention`` then holds ``num_heads / tp`` heads, and the
+decoder gathers the heads before its LayerNorms.  Dropout draws over the
+global shape (``parallel.mesh.uniform``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ from torch import nn
 
 from svpc_torch.config import ModelConfig
 from svpc_torch.ops.attention import attention_plain, fused_attention
+from svpc_torch.parallel.collectives import (copy_to_tp, gather_from_tp,
+                                             reduce_from_tp)
+from svpc_torch.parallel.mesh import fresh_generator, module_tp_dim, uniform
 from svpc_torch.precision import check_compute_dtype
 
 
@@ -54,7 +66,13 @@ class Linear(nn.Linear):
     An eval-mode module outside autograd keeps its cast weight and bias:
     an eager decode step would otherwise cast every weight again.  The
     copy is keyed by the parameters' storage, dtype, device and version,
-    so a device move, a load or an in-place update rebuilds it."""
+    so a device move, a load or an in-place update rebuilds it.
+
+    Under tp (``tp_dims``) a weight split on dim 0 makes it
+    column-parallel (its input enters through ``copy_to_tp``, its output
+    holds this rank's features), on dim 1 row-parallel (it takes this
+    rank's input features, cut from a whole input when given one, and
+    all-reduces the partial products before adding the bias)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True,
@@ -75,11 +93,22 @@ class Linear(nn.Linear):
         return self._cast[1], self._cast[2]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = module_tp_dim(self)
+        if split == 0:
+            x = copy_to_tp(x, self.mesh.tp_group)
+        elif split == 1 and x.shape[-1] != self.weight.shape[1]:
+            n = self.weight.shape[1]
+            lo = self.mesh.tp_index * n
+            x = copy_to_tp(x, self.mesh.tp_group)[..., lo:lo + n]
         dtype = self.compute_dtype or x.dtype
         if dtype == self.weight.dtype:
-            return F.linear(x.to(dtype), self.weight, self.bias)
-        w, b = self._params_in(dtype)
-        return F.linear(x.to(dtype), w, b)
+            w, b = self.weight, self.bias
+        else:
+            w, b = self._params_in(dtype)
+        if split != 1:
+            return F.linear(x.to(dtype), w, b)
+        y = reduce_from_tp(F.linear(x.to(dtype), w), self.mesh.tp_group)
+        return y if b is None else y + b
 
 
 class LayerNorm(nn.Module):
@@ -107,10 +136,11 @@ class LayerNorm(nn.Module):
 
 def _dropout(x: torch.Tensor, p: float, deterministic: bool,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout whose mask is drawn from ``generator``."""
+    """Inverted dropout whose mask is drawn from ``generator`` (over the
+    global shape under a mesh: ``parallel.mesh.uniform``)."""
     if deterministic or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = uniform(x.shape, generator, x.device) >= p
     return x * keep / (1.0 - p)
 
 
@@ -151,7 +181,15 @@ class MultiHeadAttention(nn.Module):
         # training: the differentiable plain version, dropout included
         # (svpc_tpu/model/layers.py:119-128; the kernel has no backward)
         return attention_plain(q, k, v, mask, self.num_heads,
-                               dropout_p=self.dropout_p, generator=generator)
+                               dropout_p=self.dropout_p, generator=generator,
+                               head_split=module_tp_dim(self.query) == 0)
+
+    def whole(self, ctx):
+        """The attention's output with every head: under tp each rank
+        holds its heads' columns, gathered here."""
+        if module_tp_dim(self.query) == 0:
+            return gather_from_tp(ctx, self.mesh.tp_group)
+        return ctx
 
 
 class SelfOutput(nn.Module):
@@ -234,7 +272,7 @@ def remat_layer(layer: nn.Module, generator: Optional[torch.Generator],
     after = []
 
     def run(*inputs):
-        g = torch.Generator(device=generator.device)
+        g = fresh_generator(generator)
         g.set_state(entry)
         out = layer(*inputs, generator=g)
         if not after:  # the first forward, not the recomputation
@@ -294,12 +332,12 @@ class DecoderLayer(nn.Module):
         causal = torch.tril(torch.ones(lt, lt, dtype=dec.dtype,
                                        device=dec.device))
         self_mask = dec_mask[:, None, :] * causal[None]  # (N, T, T) full
-        attn = self.self_attention(dec, dec, dec, self_mask, deterministic,
-                                   generator)
+        attn = self.self_attention.whole(self.self_attention(
+            dec, dec, dec, self_mask, deterministic, generator))
         attn = self.norm1(attn, dec)
-        cross = self.dec_enc_attention(attn, enc_out, enc_out,
-                                       enc_mask[:, None, :], deterministic,
-                                       generator)
+        cross = self.dec_enc_attention.whole(self.dec_enc_attention(
+            attn, enc_out, enc_out, enc_mask[:, None, :], deterministic,
+            generator))
         cross = self.norm2(attn, cross)
         return self.output(cross, cross, deterministic, generator)
 
@@ -311,7 +349,8 @@ class DecoderLayer(nn.Module):
     def step(self, x_t, k_cache, v_cache, t: int, enc_k, enc_v, enc_mask):
         """Incremental decode for position ``t``.
 
-        x_t (N, 1, H); k_cache/v_cache (N, T, H) hold the projected
+        x_t (N, 1, H); k_cache/v_cache (N, T, H; H / tp under tp, this
+        rank's heads) hold the projected
         self-attention keys/values of positions < t and are updated IN
         PLACE at row t (the JAX package returns new arrays), in their own
         dtype, and are read in x_t's; slots beyond t are masked out
@@ -322,13 +361,13 @@ class DecoderLayer(nn.Module):
         v_cache[:, t:t + 1] = v_t
         q_t = self.self_attention.project_q(x_t)
         pos_ok = (torch.arange(T, device=x_t.device) <= t).to(x_t.dtype)
-        attn = self.self_attention.attend(q_t, k_cache.to(x_t.dtype),
-                                          v_cache.to(x_t.dtype),
-                                          pos_ok.expand(n, 1, T))
+        attn = self.self_attention.whole(self.self_attention.attend(
+            q_t, k_cache.to(x_t.dtype), v_cache.to(x_t.dtype),
+            pos_ok.expand(n, 1, T)))
         attn = self.norm1(attn, x_t)
         cross_q = self.dec_enc_attention.project_q(attn)
-        cross = self.dec_enc_attention.attend(cross_q, enc_k, enc_v,
-                                              enc_mask[:, None, :])
+        cross = self.dec_enc_attention.whole(self.dec_enc_attention.attend(
+            cross_q, enc_k, enc_v, enc_mask[:, None, :]))
         cross = self.norm2(attn, cross)
         return self.output(cross, cross, True)
 
@@ -373,7 +412,9 @@ class PredictionHeadTransform(nn.Module):
 class LMPredictionHead(nn.Module):
     """transform -> vocab projection (+bias) (reference model.py:712-739).
     With ``share_wd_cls_weight`` the caller passes the tied word embedding
-    (vocab, H) as ``shared_embedding``."""
+    (vocab, H) as ``shared_embedding``.  Under tp the projection, the
+    bias (and a shared table) hold this rank's vocab rows: the logits are
+    gathered over tp before the padding columns are dropped."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -386,10 +427,16 @@ class LMPredictionHead(nn.Module):
 
     def forward(self, x, shared_embedding: Optional[torch.Tensor] = None):
         h = self.transform(x)
+        vocab_split = module_tp_dim(self, "bias") == 0
         if shared_embedding is not None:
+            if vocab_split:
+                h = copy_to_tp(h, self.mesh.tp_group)
             logits = h @ shared_embedding.T.to(h.dtype)
         else:
             logits = self.decoder(h)
         # the bias in the logits' dtype; drop vocab-padding columns:
         # everything downstream sees V logits
-        return (logits + self.bias.to(logits.dtype))[..., :self.vocab_size]
+        logits = logits + self.bias.to(logits.dtype)
+        if vocab_split:
+            logits = gather_from_tp(logits, self.mesh.tp_group)
+        return logits[..., :self.vocab_size]

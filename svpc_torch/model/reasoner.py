@@ -19,6 +19,8 @@ from torch import nn
 
 from svpc_torch.config import ModelConfig
 from svpc_torch.model.layers import Linear, _dropout
+from svpc_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from svpc_torch.parallel.mesh import module_tp_dim
 
 
 class ReasonerOutputs(NamedTuple):
@@ -64,8 +66,16 @@ class EntityReasoner(nn.Module):
         h = torch.relu(self.action_selector[0](step_vectors))
         h = _dropout(h, self.dropout_p, deterministic, generator)
         ac_probs = torch.sigmoid(self.action_selector[3](h))      # (B,S,A)
-        bar_ft = (_safe_div(ac_probs, ac_probs.sum(-1, keepdim=True))
-                  @ self.action_embeddings.to(step_vectors.dtype))
+        weights = _safe_div(ac_probs, ac_probs.sum(-1, keepdim=True))
+        table = self.action_embeddings.to(step_vectors.dtype)
+        if module_tp_dim(self, "action_embeddings") == 0:
+            # this rank's rows of the table: a partial product, all-reduced
+            n, group = table.shape[0], self.mesh.tp_group
+            lo = self.mesh.tp_index * n
+            bar_ft = reduce_from_tp(
+                copy_to_tp(weights, group)[..., lo:lo + n] @ table, group)
+        else:
+            bar_ft = weights @ table
         # (2) entity selector precomputations (Eq.2-3)
         hat_ht = self.W1(step_vectors)
         w2_vec = self.W2(torch.cat([hat_ht, ac_probs], dim=-1))  # (B,S,H)

@@ -17,6 +17,14 @@ activations are bfloat16 from the entry points on (the video features,
 the word vectors), with svpc_tpu's exceptions: the head's softmax, the
 copy network's mixture and everything downstream of it (losses, the
 textual re-simulator) are float32.
+
+``SVPCModel.shard(mesh)`` cuts a built model to this rank's tp shards
+(svpc_tpu's ``shard_params`` rules, parallel/mesh.py): attention heads,
+FFN columns and the vocabulary split over tp, the head's logits gathered
+before the softmax, the rest replicated.  A model is always built whole
+(an initializer draws every full tensor from the one generator, a
+checkpoint loads whole) and then sharded, so tp=T starts from tp=1's
+weights; ``full_state_dict`` gathers them back.
 """
 
 from __future__ import annotations
@@ -36,13 +44,16 @@ from svpc_torch.model.embeddings import (IngredientEmbeddings, TextEmbeddings,
                                          add_position_encoding, lookup,
                                          sinusoid_table)
 from svpc_torch.model.layers import (Decoder, Encoder, Linear,
-                                     LMPredictionHead)
+                                     LMPredictionHead, MultiHeadAttention)
 from svpc_torch.model.lstm import BiLSTM
 from svpc_torch.model.pointer import pointer_generator
 from svpc_torch.model.reasoner import EntityReasoner, ReasonerOutputs
 from svpc_torch.ops.gumbel import gumbel_softmax_st
 from svpc_torch.ops.losses import (asymmetric_loss_sum, bce_sum,
                                    label_smoothing_kl)
+from svpc_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from svpc_torch.parallel.mesh import (gather_params, module_tp_dim,
+                                      shard_module, shard_params)
 from svpc_torch.precision import check_compute_dtype
 
 NEG_INF = -1e30
@@ -175,6 +186,46 @@ class SVPCModel(nn.Module):
             self.recipe_reasoner = EntityReasoner(cfg)
         if generator is not None:
             init_parameters(self, cfg.initializer_range, generator)
+        self.mesh = None
+        self.full_shapes = {n: tuple(p.shape)
+                            for n, p in self.named_parameters()}
+        self.param_tp_dims = {n: None for n in self.full_shapes}
+
+    # ------------------------------------------------------------------ #
+    # tensor parallelism
+    # ------------------------------------------------------------------ #
+
+    def shard(self, mesh, report: Optional[dict] = None) -> "SVPCModel":
+        """Keep only this rank's tp shards of the (whole) parameters, in
+        place; a dp-only mesh changes nothing but ``self.mesh``.
+        ``report`` as ``parallel.mesh.shard_params``."""
+        self.mesh = mesh
+        if mesh is None or mesh.tp_size == 1:
+            return self
+        heads = self.cfg.num_attention_heads
+        if self.cfg.hidden_size % mesh.tp_size == 0 and \
+                heads % mesh.tp_size:
+            raise ValueError(f"tp={mesh.tp_size} splits the hidden size but "
+                             f"not the {heads} attention heads")
+        self.param_tp_dims = shard_module(self, mesh, report)
+        for mod in self.modules():
+            if isinstance(mod, MultiHeadAttention) and \
+                    module_tp_dim(mod.query) == 0:
+                mod.num_heads = heads // mesh.tp_size
+        return self
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole parameters, gathered over tp (every rank of the tp
+        group calls it)."""
+        return gather_params(self.state_dict(), self.param_tp_dims,
+                             self.mesh)
+
+    def load_full_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load whole parameters (this rank keeps its tp shards),
+        strictly."""
+        if self.mesh is not None and self.mesh.tp_size > 1:
+            state = shard_params(state, self.mesh)
+        self.load_state_dict(state, strict=True)
 
     # ------------------------------------------------------------------ #
     # encoding
@@ -337,7 +388,9 @@ class SVPCModel(nn.Module):
         cfg = self.cfg
         B, S = batch_shape
         ref = state.ga_inputs
-        shape = (B * S, cfg.max_t_len, cfg.hidden_size)
+        # this rank's heads under tp
+        width = self.decoder.layer[0].self_attention.key.weight.shape[0]
+        shape = (B * S, cfg.max_t_len, width)
         caches: List[Tuple[torch.Tensor, torch.Tensor]] = [
             (ref.new_zeros(shape, dtype=self.compute_dtype),
              ref.new_zeros(shape, dtype=self.compute_dtype))
@@ -381,7 +434,16 @@ class SVPCModel(nn.Module):
                              logits.new_tensor(NEG_INF))
         onehot = gumbel_softmax_st(logits, cfg.temperature, generator)
         V = cfg.vocab_size
-        bow = onehot[..., :V] @ self.text_embeddings.table[:V]  # (B,S,T,W)
+        table = self.text_embeddings.table
+        if module_tp_dim(self.text_embeddings.word_embeddings) == 0:
+            # this rank's rows of the vocabulary, a partial sum all-reduced
+            group = self.mesh.tp_group
+            lo = self.mesh.tp_index * table.shape[0]
+            hi = max(lo, min(lo + table.shape[0], V))
+            bow = reduce_from_tp(copy_to_tp(onehot, group)[..., lo:hi]
+                                 @ table[:hi - lo], group)
+        else:
+            bow = onehot[..., :V] @ table[:V]                   # (B,S,T,W)
 
         tm = text_mask[..., None]
         counts = torch.clamp(tm.sum(2), min=1.0)

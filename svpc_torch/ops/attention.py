@@ -24,6 +24,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from svpc_torch.parallel.mesh import uniform
+
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # kernel launches since the last reset_launches(); each wrapper adds one
 # where it launches its kernel and nowhere else (the path counters split
@@ -44,13 +46,15 @@ def reset_launches() -> None:
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, num_heads: int,
                     dropout_p: float = 0.0,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    head_split: bool = False) -> torch.Tensor:
     """The plain version: svpc_tpu/model/layers.py::attention_core.
 
     Scores and softmax in f32 whatever the input dtype; probabilities are
     cast back to v's dtype before the value product.  ``dropout_p`` > 0
-    drops probabilities (the training path; the kernel has no dropout)."""
+    drops probabilities (the training path; the kernel has no dropout);
+    ``head_split``: the heads are this rank's tp share, and the mask is
+    drawn over all of them (``parallel.mesh.uniform``)."""
     n, lq, h = q.shape
     lk = k.shape[1]
     dh = h // num_heads
@@ -62,8 +66,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores + (1.0 - mask[:, None].float()) * -10000.0
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) >= dropout_p
+        keep = uniform(probs.shape, generator, probs.device,
+                       tp_split=1 if head_split else None) >= dropout_p
         probs = probs * keep / (1.0 - dropout_p)
     ctx = torch.matmul(probs, vh)
     return ctx.transpose(1, 2).reshape(n, lq, h)

@@ -12,12 +12,15 @@ from typing import Optional
 
 import torch
 
+from svpc_torch.parallel.mesh import uniform
+
 
 def gumbel_noise(shape, generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
     """Standard Gumbel samples -log(-log(u)) in float32, u uniform in
-    [tiny, 1) (as jax.random.gumbel draws them)."""
-    u = torch.rand(shape, generator=generator, device=device)
+    [tiny, 1) (as jax.random.gumbel draws them); over the global shape
+    under a mesh (``parallel.mesh.uniform``)."""
+    u = uniform(shape, generator, device)
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 

@@ -1,5 +1,4 @@
-"""End-to-end training loop on one device: the port of
-svpc_tpu/train/loop.py.
+"""End-to-end training loop: the port of svpc_tpu/train/loop.py.
 
 Mirrors the reference driver (src/train.py:334-460): per-epoch training,
 teacher-forced validation on the EMA weights, then language eval: a greedy
@@ -15,9 +14,17 @@ too, as in svpc_tpu.  ``steps_per_dispatch`` K > 1 groups K (x
 (``group_stack_batches``), copied to the card in one pinned copy and run
 by ``multi_train_step``.  ``tensorboard`` writes svpc_tpu's scalars
 (``TBWriter``), ``profile_steps`` traces that many steady-state host
-batches with ``torch.profiler`` into ``<workdir>/profile/``.  Mesh
-parallelism (dp, tp, pp, ZeRO-1) and multi-host runs are a later slice: a
-config that asks for them (a sidecar written by svpc_tpu) raises.
+batches with ``torch.profiler`` into ``<workdir>/profile/``.
+
+With ``dp_size * tp_size > 1`` (one process a rank, started by torchrun)
+the loop trains on the dp x tp mesh of parallel/mesh.py: every rank builds
+the global batch and keeps its dp block (with ``multihost_sharded_data``
+it builds only its block), the model holds its tp shards, ``zero1``
+slices the moments and shadow over dp, and only rank 0 writes logs,
+predictions and checkpoints (layout-free: they resume on any mesh).  The
+eval batch is rounded up to a multiple of dp; each rank decodes its
+block and the tokens are gathered, so every rank scores the same
+submission.  Pipeline parallelism (``pp_size > 1``) raises.
 
 On the card the train step's attention runs the differentiable plain
 version; the hand-written attention kernel runs in validation (the
@@ -55,8 +62,12 @@ from svpc_torch.decode.postprocess import (batch_to_sentences,
 from svpc_torch.evaluation import evaluate_submission
 from svpc_torch.model import SVPCModel
 from svpc_torch.model.svpc import to_tensors
+from svpc_torch.parallel.collectives import gather_dim
+from svpc_torch.parallel.mesh import (init_distributed, local_dp_shards,
+                                      make_mesh, rank_device, shard_batch,
+                                      zero1_dims)
 from svpc_torch.precision import resolve_device
-from svpc_torch.train.optim import GLOVE_TABLES, make_optimizer, n_parameters
+from svpc_torch.train.optim import GLOVE_TABLES, make_optimizer
 from svpc_torch.train.state import TrainState, load_checkpoint, \
     save_checkpoint
 from svpc_torch.train.step import (aggregate_metrics, apply_step, eval_step,
@@ -73,14 +84,21 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_supported(cfg: Config) -> None:
     """Raise for the svpc_tpu training options a config may carry that the
-    port does not have."""
+    port does not have: pipeline parallelism."""
+    if cfg.train.pp_size > 1:
+        raise _not_ported("pipeline parallelism (--pp_size > 1)")
+
+
+def mesh_for(cfg: Config, device=None):
+    """The dp x tp mesh ``cfg.train`` asks for (None for one process),
+    joining the process group torchrun set up; more processes than the
+    mesh has raise."""
     t = cfg.train
-    for flag, on in (("dp/tp/pp mesh parallelism",
-                      t.dp_size * t.tp_size * t.pp_size > 1),
-                     ("ZeRO-1 (--zero1)", t.zero1),
-                     ("multi-host sharded data", t.multihost_sharded_data)):
-        if on:
-            raise _not_ported(flag)
+    if t.dp_size * t.tp_size == 1 and \
+            int(os.environ.get("WORLD_SIZE", 1)) == 1:
+        return None
+    init_distributed(device=device)
+    return make_mesh(t.dp_size, t.tp_size)
 
 
 def load_glove_into(model: SVPCModel, glove_path: str, verb_glove_path: str
@@ -110,10 +128,13 @@ def load_glove_into(model: SVPCModel, glove_path: str, verb_glove_path: str
 
 
 def packing_builder(cfg: Config, n_clips: Optional[int] = None,
-                    v_len: Optional[int] = None):
+                    v_len: Optional[int] = None, dp_shards: int = 1,
+                    only_shards=None):
     """Batch builder for ``CaptionDataset.batches``: the packed layout
     (None when packing is off).  ``n_clips`` / ``v_len`` pin the packed
-    shape (eval); left None they bucket per batch (training)."""
+    shape (eval); left None they bucket per batch (training).  Each of
+    ``dp_shards`` blocks packs on its own; ``only_shards`` builds only
+    those blocks (``pack_examples``)."""
     if not cfg.train.pack_clips:
         return None
 
@@ -122,8 +143,8 @@ def packing_builder(cfg: Config, n_clips: Optional[int] = None,
             examples, cfg.model.max_t_len, batch_size=batch_size,
             n_clips=n_clips, v_len=v_len,
             clip_multiple=cfg.train.pack_clip_multiple,
-            v_multiple=cfg.train.pack_v_multiple,
-            fill_workers=cfg.data.num_workers)
+            v_multiple=cfg.train.pack_v_multiple, dp_shards=dp_shards,
+            fill_workers=cfg.data.num_workers, only_shards=only_shards)
 
     return build
 
@@ -249,18 +270,23 @@ class StepProfiler:
             self.prof = None
 
 
-def eval_packing_builder(cfg: Config, dataset, batch_size: int):
+def eval_packing_builder(cfg: Config, dataset, batch_size: int,
+                         dp_shards: int = 1):
     """One packed shape across all of the dataset's eval batches."""
     return packing_builder(
         cfg, n_clips=fixed_clip_budget(dataset, batch_size,
-                                       cfg.train.pack_clip_multiple),
-        v_len=cfg.model.max_v_len)
+                                       cfg.train.pack_clip_multiple,
+                                       dp_shards),
+        v_len=cfg.model.max_v_len, dp_shards=dp_shards)
 
 
-def eval_batch_size(cfg: Config, dataset_len: int) -> int:
+def eval_batch_size(cfg: Config, dataset_len: int, mesh=None) -> int:
     """The decode batch: no bigger than the dataset (a 4-video split would
-    otherwise pad to the default 50)."""
-    return max(1, min(cfg.train.val_batch_size, dataset_len))
+    otherwise pad to the default 50), rounded up to a multiple of the
+    mesh's dp."""
+    bs = max(1, min(cfg.train.val_batch_size, dataset_len))
+    dp = mesh.dp_size if mesh is not None else 1
+    return -(-bs // dp) * dp
 
 
 def make_eval_decoder(model, cfg: Config, dataset: CaptionDataset,
@@ -268,8 +294,12 @@ def make_eval_decoder(model, cfg: Config, dataset: CaptionDataset,
     """The decode function and the fixed packed shape of a dataset's eval
     batches, built once: per-epoch eval reuses them.  ``beam_size > 1``
     decodes by beam search; ``n_best > 1`` (beam only) makes it return
-    ``(tokens (B, n, S, T), scores (B, n, S))`` ranked best-first."""
-    bs = eval_batch_size(cfg, len(dataset))
+    ``(tokens (B, n, S, T), scores (B, n, S))`` ranked best-first.  On the
+    model's mesh each rank decodes its dp block of every batch and the
+    outputs are gathered."""
+    mesh = getattr(model, "mesh", None)
+    dp = mesh.dp_size if mesh is not None else 1
+    bs = eval_batch_size(cfg, len(dataset), mesh)
     cfg = cfg.replace_train(val_batch_size=bs)
     if beam_size and beam_size > 1:
         decode = lambda b: beam_decode(model, b, beam_size=beam_size,
@@ -277,22 +307,29 @@ def make_eval_decoder(model, cfg: Config, dataset: CaptionDataset,
     else:
         decode = lambda b: greedy_decode(model, b)
     return dict(cfg=cfg, decode=decode,
-                builder=eval_packing_builder(cfg, dataset, bs),
+                builder=eval_packing_builder(cfg, dataset, bs, dp),
                 device=next(model.parameters()).device,
-                feature_dtype=model.compute_dtype)
+                feature_dtype=model.compute_dtype, mesh=mesh)
 
 
 def _decode_batches(dataset: CaptionDataset, decoder: dict,
                     max_batches: Optional[int] = None):
     """Yield ``(decoder output, metas)`` per eval batch in the dataset's
     order: the loop the greedy and the n-best paths share."""
-    bs = decoder["cfg"].train.val_batch_size
+    bs, mesh = decoder["cfg"].train.val_batch_size, decoder["mesh"]
     for j, (batch, metas) in enumerate(dataset.batches(
             bs, builder=decoder["builder"])):
         if max_batches and j >= max_batches:
             return
-        yield decoder["decode"](to_tensors(batch, decoder["device"],
-                                          decoder["feature_dtype"])), metas
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
+        out = decoder["decode"](to_tensors(batch, decoder["device"],
+                                           decoder["feature_dtype"]))
+        if mesh is not None:  # every dp block's rows, in batch order
+            out = (gather_dim(out, 0, mesh.dp_group)
+                   if isinstance(out, torch.Tensor)
+                   else tuple(gather_dim(t, 0, mesh.dp_group) for t in out))
+        yield out, metas
 
 
 def run_greedy_eval(model, dataset: CaptionDataset, cfg: Config,
@@ -332,9 +369,13 @@ def run_nbest_eval(model, dataset: CaptionDataset, cfg: Config,
     return build_submission(results or {})
 
 
-def _open_log(path: str, header: str, resumed: bool, start_epoch: int):
+def _open_log(path: str, header: str, resumed: bool, start_epoch: int,
+              write: bool = True):
     """csv log with the reference's columns (train.py:370-372); a resumed
-    run keeps the rows of epochs before ``start_epoch``."""
+    run keeps the rows of epochs before ``start_epoch``.  ``write=False``
+    (a rank other than 0) logs nowhere."""
+    if not write:
+        return open(os.devnull, "w")
     if resumed and os.path.exists(path):
         with open(path) as f:
             lines = f.readlines()
@@ -387,13 +428,21 @@ def train(cfg: Config, workdir: str,
     each optimizer step of this run as ``{"step", "loss", "grad_norm"}``
     (the loss summed over an accumulation group).  ``tensorboard`` writes
     svpc_tpu's scalars under ``workdir`` when the package is there;
-    ``profile_steps`` > 0 traces that many host batches (``StepProfiler``)."""
+    ``profile_steps`` > 0 traces that many host batches (``StepProfiler``).
+
+    With ``cfg.train.dp_size * tp_size > 1`` every rank calls it (under
+    torchrun, or after ``init_distributed``); ``device`` is then each
+    rank's (``parallel.mesh.rank_device``)."""
     check_supported(cfg)
-    device = resolve_device(device)
+    mesh = mesh_for(cfg, device)
+    device = (resolve_device(device) if mesh is None
+              else rank_device(device))
+    main = mesh is None or mesh.is_main
     if debug_nans:  # the reference's always-on anomaly detection
         torch.autograd.set_detect_anomaly(True)
     os.makedirs(workdir, exist_ok=True)
-    cfg.to_json(os.path.join(workdir, "config.json"))
+    if main:
+        cfg.to_json(os.path.join(workdir, "config.json"))
 
     train_ds = CaptionDataset(cfg, "train", lazy_features=True)
     val_ds = CaptionDataset(cfg, "val", lazy_features=True)
@@ -401,26 +450,29 @@ def train(cfg: Config, workdir: str,
                 len(val_ds))
     if len(val_ds):
         cfg = cfg.replace_train(
-            val_batch_size=eval_batch_size(cfg, len(val_ds)))
+            val_batch_size=eval_batch_size(cfg, len(val_ds), mesh))
 
+    # built whole from the seed (and GloVe), then cut to this rank's shards
     model = SVPCModel(cfg.model, torch.Generator().manual_seed(
         cfg.train.seed))
     load_glove_into(model, cfg.data.glove_path, cfg.data.verb_glove_path)
-    model = model.to(device)
+    model = model.shard(mesh).to(device)
     params = dict(model.named_parameters())
-    n_frozen = (n_parameters({n: params[n] for n in GLOVE_TABLES
-                              if n in params})
+    n_all = sum(math.prod(s) for s in model.full_shapes.values())
+    n_frozen = (sum(math.prod(model.full_shapes[n]) for n in GLOVE_TABLES
+                    if n in params)
                 if cfg.train.freeze_glove else 0)
-    logger.info("Parameter Count: all %s; trainable %s",
-                f"{n_parameters(params):,d}",
-                f"{n_parameters(params) - n_frozen:,d}")
+    logger.info("Parameter Count: all %s; trainable %s", f"{n_all:,d}",
+                f"{n_all - n_frozen:,d}")
 
     steps_per_epoch = math.ceil(len(train_ds) / cfg.train.batch_size)
     # the schedule counts OPTIMIZER steps: one per accumulation group
     optimizer = make_optimizer(
         cfg.train,
         math.ceil(steps_per_epoch / max(1, cfg.train.grad_accum_steps)),
-        params)
+        params, mesh=mesh, tp_split=model.param_tp_dims,
+        zero1_split=(zero1_dims(model.full_shapes, mesh)
+                     if cfg.train.zero1 else None))
     state = TrainState.create(model, optimizer,
                               use_ema=cfg.train.ema_decay > 0,
                               ema_dtype=cfg.train.optimizer_dtype)
@@ -442,10 +494,11 @@ def train(cfg: Config, workdir: str,
         logger.warning("no paragraph reference files found for %s/val — "
                        "language eval disabled", cfg.data.dset_name)
         eval_language = False
+    dp = mesh.dp_size if mesh is not None else 1
     val_builder = (eval_packing_builder(cfg, val_ds,
-                                        cfg.train.val_batch_size)
+                                        cfg.train.val_batch_size, dp)
                    if len(val_ds) else None)
-    eval_model = SVPCModel(cfg.model).to(device).eval()
+    eval_model = SVPCModel(cfg.model).shard(mesh).to(device).eval()
     # one decoder (packed shape, batch size) for every epoch's greedy eval
     eval_decoder = (make_eval_decoder(eval_model, cfg, val_ds)
                     if eval_language and len(val_ds) else None)
@@ -485,6 +538,8 @@ def train(cfg: Config, workdir: str,
         reports the same totals as an uninterrupted one."""
         state.epoch = completed_epoch
         save_checkpoint(workdir, state, cfg, name="checkpoint_last")
+        if not main:
+            return
         with open(prog_sidecar + ".tmp", "w") as f:
             json.dump({"epoch": cur_epoch, "batches_done": batches_done,
                        "step": state.step,
@@ -492,15 +547,15 @@ def train(cfg: Config, workdir: str,
         os.replace(prog_sidecar + ".tmp", prog_sidecar)
 
     steps = []
-    tb = TBWriter(workdir, tensorboard)
-    profiler = StepProfiler(workdir, profile_steps, device)
+    tb = TBWriter(workdir, tensorboard and main)
+    profiler = StepProfiler(workdir, profile_steps if main else 0, device)
     with contextlib.closing(tb), contextlib.closing(profiler), \
             _open_log(os.path.join(workdir, "train.log.csv"),
-                   "epoch,loss,ppl,accuracy\n", resumed, start_epoch) \
-            as train_log, \
+                   "epoch,loss,ppl,accuracy\n", resumed, start_epoch,
+                   main) as train_log, \
             _open_log(os.path.join(workdir, "valid.log.csv"),
                       "epoch,loss,ppl,accuracy,METEOR,BLEU@4,CIDEr,re4\n",
-                      resumed, start_epoch) as valid_log:
+                      resumed, start_epoch, main) as valid_log:
         for epoch in range(start_epoch, cfg.train.n_epoch):
             t0 = time.time()
             skip = resume_skip if epoch == start_epoch else 0
@@ -529,10 +584,12 @@ def train(cfg: Config, workdir: str,
             vmetrics = []
             for j, (batch, _) in enumerate(val_ds.batches(
                     cfg.train.val_batch_size, builder=val_builder)):
+                if mesh is not None:
+                    batch = shard_batch(mesh, batch)
                 vmetrics.append(eval_step(
                     eval_model, to_tensors(batch, device,
                                            eval_model.compute_dtype), cfg,
-                    step_generator(device, epoch)))
+                    step_generator(device, epoch, mesh=mesh)))
                 if max_steps_per_epoch and j + 1 >= max_steps_per_epoch:
                     break
             val_m = aggregate_metrics(vmetrics)
@@ -541,9 +598,10 @@ def train(cfg: Config, workdir: str,
                 submission = run_greedy_eval(eval_model, val_ds, cfg,
                                              max_batches=max_steps_per_epoch,
                                              decoder=eval_decoder)
-                with open(os.path.join(workdir, "greedy_pred_val_epoch"
-                                       f"{epoch}.json"), "w") as f:
-                    json.dump(submission, f, indent=2)
+                if main:
+                    with open(os.path.join(workdir, "greedy_pred_val_epoch"
+                                           f"{epoch}.json"), "w") as f:
+                        json.dump(submission, f, indent=2)
                 lang = evaluate_submission(submission, ref_para_path)
                 logger.info("[epoch %d] val METEOR %.2f B4 %.2f CIDEr %.2f "
                             "re4 %.2f", epoch, 100 * lang.get("METEOR", 0),
@@ -573,8 +631,9 @@ def train(cfg: Config, workdir: str,
             score = (lang.get("CIDEr", -1.0) if eval_language
                      else -val_m["loss_per_word"])
             save_last(epoch, -1, epoch)
-            with open(hist_path, "w") as f:
-                json.dump(history, f, indent=2)
+            if main:
+                with open(hist_path, "w") as f:
+                    json.dump(history, f, indent=2)
             if cfg.train.save_mode == "all":
                 # the reference's names carry the metrics (train.py:424-427)
                 tag = f"checkpoint_e{epoch}"
@@ -618,15 +677,25 @@ def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,
     spd = cfg.train.steps_per_dispatch
     ckpt_every = cfg.train.checkpoint_every_steps
     metrics = [resume_sums] if resume_sums else []
+    mesh = state.mesh
+    dp = mesh.dp_size if mesh is not None else 1
+    # every rank builds the global batch, or only its dp block
+    only = (local_dp_shards(mesh)
+            if mesh is not None and cfg.train.multihost_sharded_data
+            else None)
     host_iter = train_ds.batches(
         cfg.train.batch_size, shuffle=True, seed=cfg.train.seed + epoch,
-        length_group=cfg.train.length_group, builder=packing_builder(cfg),
+        length_group=cfg.train.length_group,
+        builder=packing_builder(cfg, dp_shards=dp, only_shards=only),
         skip=skip)
     if max_steps:
         host_iter = itertools.islice(host_iter, max(0, max_steps - skip))
     if spd > 1:
         host_iter = group_stack_batches(host_iter, spd, cfg.model.max_t_len,
-                                        accum=accum)
+                                        dp_shards=dp, accum=accum)
+    if mesh is not None:
+        lead = 0 if spd == 1 else (2 if accum > 1 else 1)
+        host_iter = ((shard_batch(mesh, b, lead), m) for b, m in host_iter)
     batch_iter = prefetch_to_device(host_iter, device, size=2,
                                     feature_dtype=state.model.compute_dtype)
     n_micro, group_loss = 0, 0.0
@@ -648,7 +717,7 @@ def _train_epoch(state: TrainState, cfg: Config, train_ds, epoch: int,
             else:
                 # microbatch generators fold in (step, index)
                 m = grad_step(state, batch, cfg, step_generator(
-                    device, cfg.train.seed, state.step, n_micro))
+                    device, cfg.train.seed, state.step, n_micro, mesh=mesh))
                 n_micro += 1
                 if n_micro == accum:
                     m.update(apply_step(state, cfg))

@@ -16,17 +16,29 @@ Parameters are addressed by the port's state-dict names, which are the
 reference PyTorch names, so the reference decay grouping (train.py:339-343)
 applies to them directly.  Schedule and EMA scalars are computed in
 float32 on the host, as the JAX package computes them in float32.
+
+On a mesh (parallel/mesh.py) the parameters are this rank's tp shards
+and the gradients are whole over dp (the step all-reduces them): both
+clips read each tensor's full norm, its local norm's square summed over
+tp where it is tp-split.  With ZeRO-1 each rank keeps the moments (and
+the EMA shadow) of its dp slice of each tensor only, updates that slice
+and all-gathers the updated slices over dp.  ``state_dict`` gathers the
+moments whole and ``load_state_dict`` slices them, so a checkpoint holds
+no layout.
 """
 
 from __future__ import annotations
 
-import math
+import dataclasses
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from svpc_torch.config import TrainConfig
+from svpc_torch.parallel.collectives import gather_dim
+from svpc_torch.parallel.mesh import dp_slice, tp_slice
 
 # the GloVe-initialized tables (word / ingredient / verb embeddings);
 # ``freeze_glove`` keeps them fixed, the reference's
@@ -112,7 +124,12 @@ class BertAdam:
     clip (``global_clip`` > 0).  Moments are stored in ``state_dtype``
     ("bfloat16" halves their memory traffic); their math runs in float32.
     ``frozen`` names get no update (their moments still advance, as the
-    JAX chain zeroes updates after the step)."""
+    JAX chain zeroes updates after the step).
+
+    ``mesh`` with ``tp_split`` (name -> the dim a parameter is split on
+    over tp, None when replicated) and ``zero1_split`` (name -> the dim of
+    its dp slice under ZeRO-1, None when held whole) lays the optimizer
+    out as the module docstring says."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float,
                  schedule: Optional[str] = "warmup_linear",
@@ -121,8 +138,16 @@ class BertAdam:
                  weight_decay: float = 0.01, max_grad_norm: float = 1.0,
                  global_clip: float = 0.0,
                  state_dtype: Optional[str] = None,
-                 frozen: Iterable[str] = ()):
+                 frozen: Iterable[str] = (), mesh=None,
+                 tp_split: Optional[Dict[str, Optional[int]]] = None,
+                 zero1_split: Optional[Dict[str, Optional[int]]] = None):
         self.params = params
+        self.mesh = mesh
+        self.tp_split = {n: d for n, d in (tp_split or {}).items()
+                         if d is not None and mesh is not None
+                         and mesh.tp_size > 1}
+        self.zero1_split = {n: d for n, d in (zero1_split or {}).items()
+                            if d is not None and mesh is not None}
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
@@ -130,12 +155,42 @@ class BertAdam:
         self.schedule = lr_schedule_fn(schedule, warmup, t_total)
         self.frozen = frozenset(frozen)
         sdt = torch.bfloat16 if state_dtype == "bfloat16" else None
-        self.m = {n: torch.zeros_like(p, dtype=sdt or p.dtype)
+        self.m = {n: torch.zeros_like(self.local(n, p), dtype=sdt or p.dtype)
                   for n, p in params.items()}
-        self.v = {n: torch.zeros_like(p, dtype=sdt or p.dtype)
+        self.v = {n: torch.zeros_like(self.local(n, p), dtype=sdt or p.dtype)
                   for n, p in params.items()}
         self.step = 0
 
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-1 slice of a tp-local tensor (a view; the
+        tensor itself without ZeRO-1)."""
+        return dp_slice(t, self.zero1_split.get(name), self.mesh)
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A moment- or shadow-shaped slice gathered to the parameter's
+        full tensor: over dp (ZeRO-1), then over tp; every rank calls it."""
+        if name in self.zero1_split:
+            t = gather_dim(t, self.zero1_split[name], self.mesh.dp_group)
+        if name in self.tp_split:
+            t = gather_dim(t, self.tp_split[name], self.mesh.tp_group)
+        return t
+
+    def from_whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a full tensor (``whole``'s inverse)."""
+        return self.local(name, tp_slice(t, self.tp_split.get(name),
+                                         self.mesh))
+
+    def grad_norms(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each gradient's full L2 norm (``grads`` in ``self.params``
+        order): a tp-split tensor's local squared norm summed over tp."""
+        norms = grad_norms(grads)
+        split = [i for i, n in enumerate(self.params) if n in self.tp_split]
+        if split:
+            sq = torch.stack([norms[i] for i in split]) ** 2
+            dist.all_reduce(sq, group=self.mesh.tp_group)
+            for i, s in zip(split, sq.sqrt().unbind()):
+                norms[i] = s
+        return norms
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor],
                norms: Optional[List[torch.Tensor]] = None) -> None:
@@ -147,7 +202,7 @@ class BertAdam:
         gs = [grads[n] for n in names]
         if self.global_clip > 0:
             if norms is None:
-                norms = grad_norms(gs)
+                norms = self.grad_norms(gs)
             gs = torch._foreach_mul(
                 gs, clip_scale(total_norm(norms), self.global_clip))
             # the per-parameter clip reads the clipped gradients' own norms,
@@ -156,61 +211,89 @@ class BertAdam:
             norms = None
         if self.max_grad_norm > 0:
             if norms is None:
-                norms = grad_norms(gs)
+                norms = self.grad_norms(gs)
             gs = torch._foreach_mul(gs, list(clip_scale(
                 torch.stack(norms), self.max_grad_norm).unbind()))
         lr_t = float(_F32(self.lr) * self.schedule(self.step))
         b1, b2 = self.b1, self.b2
         for name, g in zip(names, gs):
+            g = self.local(name, g)
             m = b1 * self.m[name].float() + (1 - b1) * g
             v = b2 * self.v[name].float() + (1 - b2) * g * g
             self.m[name].copy_(m)
             self.v[name].copy_(v)
             if name in self.frozen:
                 continue
-            p = self.params[name]
+            p = self.local(name, self.params[name])
             u = m / (v.sqrt() + self.eps)
             if self.weight_decay > 0 and decays(name):
                 u = u + self.weight_decay * p
             p.add_(-lr_t * u)
+        if self.zero1_split:
+            self._gather_slices()
         self.step += 1
 
+    def _gather_slices(self) -> None:
+        """Every dp rank's updated ZeRO-1 slices into every rank's
+        parameters: one all-gather of the slices laid end to end."""
+        mesh = self.mesh
+        names = list(self.zero1_split)
+        mine = torch.cat([self.local(n, self.params[n]).reshape(-1)
+                          for n in names])
+        parts = [torch.empty_like(mine) for _ in range(mesh.dp_size)]
+        dist.all_gather(parts, mine, group=mesh.dp_group)
+        for r, flat in enumerate(parts):
+            off = 0
+            for n in names:
+                view = dp_slice(self.params[n], self.zero1_split[n],
+                                dataclasses.replace(mesh, dp_index=r))
+                view.copy_(flat[off:off + view.numel()].view(view.shape))
+                off += view.numel()
+
     def state_dict(self) -> dict:
-        return {"step": self.step, "m": self.m, "v": self.v}
+        """Step and moments, the moments whole (every rank calls it)."""
+        return {"step": self.step,
+                "m": {n: self.whole(n, t) for n, t in self.m.items()},
+                "v": {n: self.whole(n, t) for n, t in self.v.items()}}
 
     def load_state_dict(self, state: dict) -> None:
+        """From whole moments (a checkpoint of any layout)."""
         self.step = int(state["step"])
         for key in ("m", "v"):
             for n, t in getattr(self, key).items():
-                t.copy_(state[key][n])
+                t.copy_(self.from_whole(n, state[key][n]))
 
 
 def make_optimizer(cfg: TrainConfig, steps_per_epoch: int,
-                   params: Dict[str, torch.Tensor]) -> BertAdam:
+                   params: Dict[str, torch.Tensor], mesh=None,
+                   tp_split: Optional[Dict[str, Optional[int]]] = None,
+                   zero1_split: Optional[Dict[str, Optional[int]]] = None
+                   ) -> BertAdam:
     """The global clip then BertAdam, over ``steps_per_epoch * n_epoch``
-    scheduled steps (svpc_tpu/train/optim.py:make_optimizer)."""
+    scheduled steps (svpc_tpu/train/optim.py:make_optimizer); ``mesh``,
+    ``tp_split`` and ``zero1_split`` as ``BertAdam`` takes them."""
     return BertAdam(
         params, lr=cfg.lr, schedule=cfg.lr_schedule,
         warmup=cfg.lr_warmup_proportion,
         t_total=steps_per_epoch * cfg.n_epoch, b1=cfg.adam_b1,
         b2=cfg.adam_b2, eps=cfg.adam_eps, weight_decay=cfg.weight_decay,
         global_clip=cfg.grad_clip, state_dtype=cfg.optimizer_dtype,
-        frozen=GLOVE_TABLES if cfg.freeze_glove else ())
+        frozen=GLOVE_TABLES if cfg.freeze_glove else (), mesh=mesh,
+        tp_split=tp_split, zero1_split=zero1_split)
 
 
 @torch.no_grad()
 def ema_update(shadow: Dict[str, torch.Tensor],
                params: Dict[str, torch.Tensor], step: int,
-               decay: float) -> None:
+               decay: float, local=None) -> None:
     """shadow <- (1-d)*param + d*shadow, d = min(decay, (1+step)/(10+step))
     (reference optimization.py:196-203; ``step`` is the global iteration).
-    A bf16 shadow blends in float32 and stores rounded."""
+    A bf16 shadow blends in float32 and stores rounded.  ``local(name,
+    param)`` gives the slice a ZeRO-1 shadow holds (``BertAdam.local``)."""
     s = _F32(step)
     d = min(_F32(decay), (_F32(1.0) + s) / (_F32(10.0) + s))
     keep, take = float(d), float(_F32(1.0) - d)
     for name, sh in shadow.items():
-        sh.copy_(take * params[name] + keep * sh.float())
+        p = params[name] if local is None else local(name, params[name])
+        sh.copy_(take * p + keep * sh.float())
 
-
-def n_parameters(params: Dict[str, torch.Tensor]) -> int:
-    return sum(math.prod(p.shape) for p in params.values())

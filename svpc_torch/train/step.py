@@ -17,6 +17,12 @@ The streams differ from JAX's, a seed-like difference.
 stacked on the device (data/packing.py::stack_batches), each step what
 ``train_step`` (or, under accumulation, ``accum_train_step``) does on its
 slice, and returns the metrics stacked (K,) per key.
+
+On a mesh (``state.mesh``, parallel/mesh.py) each rank runs its dp block
+of the batch: the metrics are summed over dp, the gradients are
+all-reduced over dp once per optimizer step (after any accumulation),
+and every draw is over the global shape (``step_generator(mesh=...)``),
+so the trajectory is the one-process run's on the global batch.
 """
 
 from __future__ import annotations
@@ -25,20 +31,53 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from svpc_torch import tokenization as tok
 from svpc_torch.config import Config
-from svpc_torch.train.optim import ema_update, grad_norms, total_norm
+from svpc_torch.parallel.mesh import GlobalDraws
+from svpc_torch.train.optim import ema_update, total_norm
 from svpc_torch.train.state import TrainState
 
 
-def step_generator(device, seed: int, *counters: int) -> torch.Generator:
+def step_generator(device, seed: int, *counters: int, mesh=None):
     """A generator on ``device`` seeded from ``seed`` and ``counters``
-    (e.g. the step), mixed so that nearby pairs give unrelated streams."""
+    (e.g. the step), mixed so that nearby pairs give unrelated streams;
+    on a ``mesh`` it draws over the global shape (``GlobalDraws``)."""
     mixed = np.random.SeedSequence([seed, *counters]).generate_state(
         1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(
+    gen = torch.Generator(device=device).manual_seed(
         int(mixed) & (2 ** 63 - 1))
+    return gen if mesh is None else GlobalDraws(gen, mesh)
+
+
+def sum_over_dp(metrics: Dict, mesh) -> Dict:
+    """Each metric summed over the dp ranks (one all-reduce, in float64;
+    each value keeps its dtype)."""
+    if mesh is None or mesh.dp_group is None:
+        return metrics
+    keys = list(metrics)
+    vals = [torch.as_tensor(metrics[k]) for k in keys]
+    flat = torch.stack([v.to(vals[0].device, torch.float64) for v in vals])
+    dist.all_reduce(flat, group=mesh.dp_group)
+    return {k: s.to(v.dtype) for k, s, v in zip(keys, flat.unbind(), vals)}
+
+
+def sum_grads_over_dp(grads: Dict[str, torch.Tensor], mesh
+                      ) -> Dict[str, torch.Tensor]:
+    """The gradients summed over the dp ranks: one all-reduce of them laid
+    end to end."""
+    if mesh is None or mesh.dp_group is None:
+        return grads
+    names = list(grads)
+    flat = torch.cat([grads[n].reshape(-1) for n in names])
+    dist.all_reduce(flat, group=mesh.dp_group)
+    out, off = {}, 0
+    for n in names:
+        k = grads[n].numel()
+        out[n] = flat[off:off + k].view(grads[n].shape)
+        off += k
+    return out
 
 
 def batch_metrics(out, batch, cfg: Config) -> Dict[str, torch.Tensor]:
@@ -74,10 +113,11 @@ def batch_metrics(out, batch, cfg: Config) -> Dict[str, torch.Tensor]:
 def grad_step(state: TrainState, batch, cfg: Config,
               generator: Optional[torch.Generator]) -> Dict:
     """Forward (non-deterministic) and backward of the summed loss; the
-    gradients ADD into the parameters' ``.grad`` (accumulation)."""
+    gradients ADD into the parameters' ``.grad`` (accumulation).  The
+    metrics are summed over dp."""
     out = state.model(batch, deterministic=False, generator=generator)
     out.total_loss.backward()
-    return batch_metrics(out, batch, cfg)
+    return sum_over_dp(batch_metrics(out, batch, cfg), state.mesh)
 
 
 def apply_step(state: TrainState, cfg: Config,
@@ -85,10 +125,13 @@ def apply_step(state: TrainState, cfg: Config,
     """The optimizer and EMA update from the accumulated ``.grad``, which
     it then clears.  With ``skip_nonfinite_updates`` a step whose gradient
     norm (or ``loss``) is not finite keeps parameters, moments and shadow,
-    and is counted; the check reads the norm on the host."""
-    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for n, p in state.params.items()}
-    norms = grad_norms(list(grads.values()))  # the optimizer's order
+    and is counted; the check reads the norm on the host.  On a mesh the
+    gradients are first summed over dp."""
+    grads = sum_grads_over_dp(
+        {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+         for n, p in state.params.items()}, state.mesh)
+    # the optimizer's order; tp-split tensors' norms summed over tp
+    norms = state.optimizer.grad_norms(list(grads.values()))
     grad_norm = total_norm(norms)
     metrics = {"grad_norm": grad_norm}
     ok = True
@@ -102,7 +145,7 @@ def apply_step(state: TrainState, cfg: Config,
         state.optimizer.update(grads, norms)
         if state.ema_shadow is not None and cfg.train.ema_decay > 0:
             ema_update(state.ema_shadow, state.params, state.step,
-                       cfg.train.ema_decay)
+                       cfg.train.ema_decay, state.optimizer.local)
     for p in state.params.values():
         p.grad = None
     state.step += 1
@@ -114,7 +157,8 @@ def train_step(state: TrainState, batch, cfg: Config) -> Dict:
     BertAdam, EMA; the generator is seeded from ``(seed, state.step)``."""
     device = next(iter(state.params.values())).device
     m = grad_step(state, batch, cfg,
-                  step_generator(device, cfg.train.seed, state.step))
+                  step_generator(device, cfg.train.seed, state.step,
+                                 mesh=state.mesh))
     m.update(apply_step(state, cfg, loss=m["loss"]))
     return m
 
@@ -131,7 +175,8 @@ def accum_train_step(state: TrainState, batches, cfg: Config) -> Dict:
     n = next(iter(batches.values())).shape[0]
     step = state.step
     ms = [grad_step(state, {k: v[i] for k, v in batches.items()}, cfg,
-                    step_generator(device, cfg.train.seed, step, i))
+                    step_generator(device, cfg.train.seed, step, i,
+                                   mesh=state.mesh))
           for i in range(n)]
     metrics = {k: torch.stack([torch.as_tensor(m[k]) for m in ms]).sum(0)
                for k in ms[0]}
@@ -157,10 +202,11 @@ def multi_train_step(state: TrainState, batches, cfg: Config) -> Dict:
 def eval_step(model, batch, cfg: Config,
               generator: Optional[torch.Generator]) -> Dict:
     """Deterministic teacher-forced metrics (on the card every attention
-    runs the hand-written kernel); ``generator`` feeds the re-simulator's
-    Gumbel noise, which eval still draws."""
+    runs the hand-written kernel), summed over dp on a mesh;
+    ``generator`` feeds the re-simulator's Gumbel noise, which eval still
+    draws."""
     out = model(batch, deterministic=True, generator=generator)
-    return batch_metrics(out, batch, cfg)
+    return sum_over_dp(batch_metrics(out, batch, cfg), model.mesh)
 
 
 def sum_metrics(metric_list) -> Dict[str, float]:

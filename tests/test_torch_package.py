@@ -1,5 +1,6 @@
 """Rules of the svpc_torch package: it imports none of JAX, flax, nltk,
-ml_dtypes or svpc_tpu (neither does chip_smoke.py), in its source and when
+ml_dtypes or svpc_tpu (neither does chip_smoke.py, nor the parallel
+package and its rank worker, svpc_torch/parallel/), in its source and when
 every module is imported; asking for the card without one raises; the
 compute dtype is float32 or bfloat16."""
 
@@ -62,7 +63,10 @@ def test_every_port_module_imports_without_them():
                  "svpc_torch.cli.validate_data",
                  "svpc_torch.cli.convert_features",
                  "svpc_torch.cli.build_vocab",
-                 "svpc_torch.cli.build_pos_vocab"):
+                 "svpc_torch.cli.build_pos_vocab",
+                 "svpc_torch.parallel", "svpc_torch.parallel.mesh",
+                 "svpc_torch.parallel.collectives",
+                 "svpc_torch.parallel.worker"):
         assert name in names, name
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
