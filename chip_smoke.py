@@ -159,6 +159,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
            mesh path equal to the plain step (1e-6 relative).  The
            kernels phase also times the serving shapes at tp=2 (H=384, 6
            heads).
+  pipeline (after parallel) GPipe of svpc_torch.parallel.pipeline at
+           full vivt width on the train fixture, f32, the flagship's 2 + 2
+           layers (one a stage at pp2), ranks as in parallel (gloo on
+           cuda:0, not a scaling figure): (a) pp2 and (b) dp2 x pp2
+           ZeRO-1, two train steps with dropout on against the same steps
+           in this process on the same global batches (losses within 1e-5
+           relative, parameters and EMA within rtol 2e-4 / atol 1e-5),
+           each rank's parameters (32,457,648) and m, v and EMA bytes
+           (389,491,776; about half at dp2 ZeRO-1) against the reckoning,
+           its peak memory; (c) train.loop.train at pp2 for 3 steps with
+           validation (the pipelined eval step, the greedy decode on the
+           gathered trunk), language eval and checkpoints, whose rank-0
+           checkpoint in a one-process cli.evaluate captions the val
+           videos as the run's validation did, and a one-process eval step
+           on it gives the run's validation metrics (loss per word within
+           1e-4 relative, accuracy and entity / action F1 equal); every
+           attention form of its
+           validation (the 36-row microbatches among them) held against
+           attention_plain (f32 1e-5) and timed.  Wall seconds of each
+           part, launches by rank.  The kernels phase times the microbatch
+           shapes (``pp2_`` rows).
+  serve_mesh
+           (after serve_upload) cli.serve --dp_size 2, then --tp_size 2,
+           on two gloo ranks of the card (each rank runs the CLI's main
+           in svpc_torch.parallel.worker's cli_serve job, which counts its
+           attention calls after the warm-up): the serve phase's burst,
+           captions equal to the one-process serve phase's, both kernel
+           paths launched on every rank, every tp2 launch at 6 heads.
   dump_memories
            cli.dump_memories on the train phase's checkpoint over the val
            split on the card (pickle keys, finite), every attention form
@@ -184,6 +212,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -225,6 +254,17 @@ BEAM_LAUNCHES = {"beam2_self_cached": 42, "beam2_cross_cached": 42}
 TP2_SHAPES = [("tp2_" + name, n, lq, lk, form, NUM_HEADS // 2, 0)
               for name, n, lq, lk, form, _, _ in SERVING_SHAPES[:4]]
 TP2_LAUNCHES = {"tp2_" + s[0]: s[6] for s in SERVING_SHAPES[:4]}
+# the pipelined trunks' microbatch forms at pp=2 (4 microbatches, the
+# auto count): validation's 144 clip slots give 36 rows a microbatch (the
+# clip encoder, the decoder's causal self-attention and its cross
+# attention on the 3 memory rows), training's 112 slots of batch 16 give
+# 28 (whose attention is the plain version: no launch)
+PP2_SHAPES = [
+    ("pp2_val_clip_encoder", 36, 100, 100, "padding", NUM_HEADS, 0),
+    ("pp2_val_decoder_causal", 36, 22, 22, "causal", NUM_HEADS, 0),
+    ("pp2_val_decoder_cross", 36, 22, 3, "ones", NUM_HEADS, 0),
+    ("pp2_train_clip_encoder", 28, 100, 100, "padding", NUM_HEADS, 0),
+]
 # off the serving path: several ring stages of keys, a sequence that sees
 # no key, and the widest head the kernel takes (dh=128: its f32 tile
 # blocks hold 64 query rows, its bf16 decode step spans two chunks of
@@ -381,7 +421,8 @@ def phase_kernels(seed: int):
     from svpc_torch.ops.attention import DECODE_MAX_LQ, LAUNCHES, _plan, \
         attention_plain, fused_attention
 
-    cases = SERVING_SHAPES + BEAM_SHAPES + TP2_SHAPES + EXTRA_SHAPES + [
+    cases = SERVING_SHAPES + BEAM_SHAPES + TP2_SHAPES + PP2_SHAPES + \
+        EXTRA_SHAPES + [
         ("threshold_decode", 96, DECODE_MAX_LQ, 22, "causal", NUM_HEADS, 0),
         ("threshold_tile", 96, DECODE_MAX_LQ + 1, 22, "causal", NUM_HEADS,
          0)]
@@ -616,7 +657,9 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
           "latency_ms": stats["latency_ms"], "batch_ms": stats["batch_ms"],
           "launches": launches, "feature_fills": fills,
           "launches_per_batch": launches["fused_attention"] / batches})
-    return service, fx, ckpt, launches
+    captions = {vid: [c["sentence"] for c in resp["captions"]]
+                for vid, (_, resp) in results.items()}
+    return service, fx, ckpt, launches, captions
 
 
 # ---------------------------------------------------------------------- #
@@ -2575,6 +2618,331 @@ def phase_parallel(seed: int, workdir: str, fx):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# pipeline
+# ---------------------------------------------------------------------- #
+
+# pp2 at full vivt width (vocabulary unpadded): a stage holds the 40,143,024
+# parameters less the other stage's trunk layer (15,370,752 / 2), and its
+# f32 m, v and EMA are 3 x 4 B of each
+PP2_PREDICTED = {"params": 32_457_648, "bytes": 389_491_776}
+
+
+def _sum_launches(rows):
+    return {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+
+
+def _pp_steps(cfg, seed, base, on_card, dp):
+    """Two train steps (dropout on) at dp x pp2 (ZeRO-1 at dp2) on
+    2 * dp gloo ranks of the card, against the same steps in this process
+    on the same global batches from the same init."""
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.parallel.worker import run_job, train_batches, \
+        train_state
+    from svpc_torch.train.step import train_step
+
+    cfg = cfg.replace_train(dp_size=dp, zero1=dp > 1)
+    spec = dict(on_card, cfg=cfg.to_dict(), seed=seed, n_steps=2,
+                steps_per_epoch=6, dp=dp, pp=2,
+                out=os.path.join(base, f"steps_dp{dp}"))
+    wall = run_job("steps", spec, 2 * dp, timeout=300)
+    res = torch.load(os.path.join(spec["out"], "result.pt"),
+                     weights_only=False)
+    ranks = _rank_rows(spec["out"], 2 * dp)
+    model = SVPCModel(cfg.model, torch.Generator().manual_seed(seed))
+    one = cfg.replace_train(dp_size=1, pp_size=1, zero1=False)
+    state = train_state(one, model.to("cuda"), 6)
+    ref = [train_step(state, to_tensors(b, torch.device("cuda")), one)
+           for b in train_batches(cfg, 2, dp=dp)]
+    losses = [{k: float(m[k]) for k in ("loss", "caption_loss",
+                                        "grad_norm")} for m in ref]
+    rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+              zip(res["losses"], losses) for k in w)
+    worst = {"params": _worst_close(res["state"]["model"], {
+                 n: p.detach() for n, p in state.params.items()},
+                 2e-4, 1e-5),
+             "ema": _worst_close(res["state"]["ema_shadow"],
+                                 state.ema_shadow, 2e-4, 1e-5)}
+    row = {"wall_s": wall, "losses_mesh": res["losses"],
+           "losses_one_process": losses, "loss_max_rel": rel,
+           "loss_tol": 1e-5, "tol_excess": worst,
+           "ranks": [{k: r[k] for k in (
+               "dp_index", "pp_index", "n_params", "bytes",
+               "bytes_without_zero1", "max_memory_allocated")}
+               for r in ranks],
+           "predicted": PP2_PREDICTED,
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    bad = []
+    if not rel <= 1e-5:
+        bad.append(f"dp{dp}xpp2 losses")
+    if not max(worst.values()) <= 0:
+        bad.append(f"dp{dp}xpp2 parameters or EMA")
+    for r in ranks:
+        held = sum(r["bytes"].values())
+        whole = sum(r["bytes_without_zero1"].values())
+        if r["n_params"] != PP2_PREDICTED["params"] or \
+                whole != PP2_PREDICTED["bytes"] or \
+                not (held == whole if dp == 1 else held < 0.52 * whole):
+            bad.append(f"dp{dp}xpp2 residency {r['n_params']} parameters, "
+                       f"{held} of {whole} B")
+    return row, bad, [r["launches"] for r in ranks]
+
+
+def _pp_loop(cfg, fx, base, on_card):
+    """train.loop.train at pp2 for 3 steps with validation (the pipelined
+    eval step, the greedy decode on the gathered trunk), language eval
+    and checkpoints; its rank-0 checkpoint in a one-process cli.evaluate
+    gives the captions the run's validation decoded; every attention form
+    of its validation held against attention_plain."""
+    from svpc_torch.cli.evaluate import main as evaluate_main
+    from svpc_torch.parallel.worker import run_job
+
+    out = os.path.join(base, "loop")
+    spec = dict(on_card, cfg=cfg.replace_train(n_epoch=1).to_dict(),
+                max_steps_per_epoch=3, record_forms=True, out=out)
+    wall = run_job("train", spec, 2, timeout=400)
+    with open(os.path.join(out, "result.json")) as f:
+        res = json.load(f)
+    with open(os.path.join(out, "greedy_pred_val_epoch0.json")) as f:
+        mesh_sub = json.load(f)
+    ckpt = os.path.join(out, "checkpoint_last")
+    t0 = time.perf_counter()
+    one = evaluate_main(_eval_argv(fx, ckpt) + [
+        "--split", "val", "--val_batch_size", "16",
+        "--output_dir", os.path.join(out, "eval_one_process")])
+    eval_s = time.perf_counter() - t0
+    val_one = _one_process_validation(ckpt)
+    val_pp = res["history"][0]["val"]
+    sentences = lambda sub: {v: [e["sentence"] for e in es]
+                             for v, es in sub["results"].items()}
+    differ = [v for v, s in sentences(one["submission"]).items()
+              if sentences(mesh_sub).get(v) != s]
+    ranks = _rank_rows(out, 2)
+    calls = {("pp2_validation", f["key"][0], f["key"][1], f["key"][2],
+              tuple(f["key"][3])):
+             {"inputs": tuple(t.to("cuda") for t in f["inputs"])
+              + (f["num_heads"],), "calls": f["calls"]}
+             for f in torch.load(os.path.join(out, "forms.pt"),
+                                 weights_only=False)}
+    forms, kernel_bad = _form_rows(calls)
+    micro = [f for f in forms if f["N"] == 36]
+    row = {"wall_s": wall, "one_process_evaluate_s": eval_s,
+           "losses": [s["loss"] for s in res["steps"]],
+           "val": val_pp, "val_one_process": val_one,
+           "lang": res["history"][0]["lang"],
+           "videos": len(sentences(mesh_sub)),
+           "videos_captioned_differently": differ,
+           "ranks": [{k: r[k] for k in ("pp_index", "train_s",
+                                         "max_memory_allocated", "launches",
+                                         "heads")} for r in ranks],
+           "forms": forms}
+    bad = list(kernel_bad)
+    if len(row["losses"]) != 3 or not all(
+            math.isfinite(x) for x in row["losses"]):
+        bad.append("pp2 loop losses")
+    if differ or not row["videos"]:
+        bad.append("one-process evaluate captions the pp2 checkpoint "
+                   "differently")
+    if abs(val_pp["loss_per_word"] - val_one["loss_per_word"]) > \
+            1e-4 * abs(val_one["loss_per_word"]) or \
+            val_pp["acc"] != val_one["acc"] or \
+            val_pp["entity"] != val_one["entity"] or \
+            val_pp["action"] != val_one["action"]:
+        bad.append("the pipelined validation's metrics differ from one "
+                   "process's on the checkpoint")
+    if not all(r["launches"]["fused_attention.tile"]
+               and r["launches"]["fused_attention.decode"] for r in ranks):
+        bad.append("a kernel path did not launch in a pp2 rank's "
+                   "validation")
+    if not micro:
+        bad.append("no 36-row microbatch form in the pipelined validation")
+    return row, bad, [r["launches"] for r in ranks]
+
+
+def _one_process_validation(ckpt):
+    """The trainer's teacher-forced validation of epoch 0 (its batches,
+    its Gumbel generator) in this process, on a checkpoint's EMA weights,
+    with the sequential trunks."""
+    import svpc_torch.train.loop as loop
+    from svpc_torch.config import Config
+    from svpc_torch.data.pipeline import CaptionDataset
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.train.state import load_eval_weights
+    from svpc_torch.train.step import aggregate_metrics, eval_step, \
+        step_generator
+
+    cfg = Config.from_json(ckpt + ".cfg.json")
+    model = SVPCModel(cfg.model)
+    model.load_state_dict(load_eval_weights(ckpt), strict=True)
+    model = model.to("cuda").eval()
+    ds = CaptionDataset(cfg, "val", lazy_features=True)
+    bs = cfg.train.val_batch_size
+    metrics = [eval_step(model, to_tensors(b, torch.device("cuda")), cfg,
+                         step_generator("cuda", 0))
+               for j, (b, _) in enumerate(ds.batches(
+                   bs, builder=loop.eval_packing_builder(cfg, ds, bs)))
+               if j < 3]
+    return aggregate_metrics(metrics)
+
+
+def phase_pipeline(seed: int, workdir: str, fx):
+    """GPipe (svpc_torch.parallel.pipeline) at full vivt width on the
+    train fixture, f32, the flagship's 2 + 2 layers (one a stage), each
+    part's ranks in processes of svpc_torch.parallel.worker (each killed
+    at its timeout): the ranks share cuda:0 over gloo, so their times are
+    one card's, not a scaling figure."""
+    t0 = time.perf_counter()
+    base = os.path.join(workdir, "pipeline")
+    on_card = dict(device="cuda:0", backend="gloo", timeout_s=300)
+    cfg = _train_cfg(fx).replace_train(pp_size=2)
+    row, bad, launches = {"phase": "pipeline"}, [], []
+    for dp in (1, 2):
+        t1 = time.perf_counter()
+        key = "steps_pp2" if dp == 1 else "steps_dp2xpp2_zero1"
+        row[key], b, l = _pp_steps(cfg, seed, base, on_card, dp)
+        row[key]["part_s"] = time.perf_counter() - t1
+        bad += b
+        launches += l
+    t1 = time.perf_counter()
+    row["loop_pp2"], b, l = _pp_loop(cfg, fx, base, on_card)
+    row["loop_pp2"]["part_s"] = time.perf_counter() - t1
+    bad += b
+    launches += l
+    total = {k: sum(x[k] for x in launches) for k in launches[0]}
+    row.update(phase_s=time.perf_counter() - t0, launches=total,
+               card=card_line())
+    if bad:
+        fail("pipeline", f"{bad}: {json.dumps(row, default=str)}")
+    emit(dict(row, ok=True))
+    return total
+
+
+# ---------------------------------------------------------------------- #
+# serve_mesh
+# ---------------------------------------------------------------------- #
+
+def phase_serve_mesh(fx, ckpt, want, workdir):
+    """cli.serve --dp_size 2, then --tp_size 2, on two gloo ranks of the
+    card (svpc_torch.parallel.worker's cli_serve job runs the CLI's main
+    on each rank and counts its attention calls after the warm-up): the
+    serve phase's burst of concurrent requests, captions equal to the
+    one-process serve phase's; both kernel paths launch on every rank,
+    and at tp2 every launch takes 6 heads.  Every attention form either
+    rank ran in the burst (dp2: a rank's block of the batch, at 12 heads;
+    tp2: the whole batch at 6) is recorded there and held against
+    attention_plain here (``_form_rows``)."""
+    from svpc_torch.parallel.mesh import free_port
+    from svpc_torch.parallel.worker import Ranks
+
+    t0 = time.perf_counter()
+    row, bad, launches = {"phase": "serve_mesh"}, [], []
+    for flag in ("--dp_size", "--tp_size"):
+        name = "dp2" if flag == "--dp_size" else "tp2"
+        out = os.path.join(workdir, f"serve_mesh_{name}")
+        os.makedirs(out, exist_ok=True)
+        port = free_port()
+        spec = dict(device="cuda:0", backend="gloo", timeout_s=300, out=out,
+                    record_forms=True, argv=["--model_type", "vivt", "--torch_checkpoint",
+                          "--checkpoint", ckpt,
+                          "--word2idx_path", fx["word2idx_path"],
+                          "--verb2idx_path", fx["verb2idx_path"],
+                          "--video_feature_dir", fx["video_feature_dir"],
+                          "--duration_file", fx["duration_file"],
+                          "--batch_videos", "8", "--max_clips", "12",
+                          "--max_wait_ms", "100", "--port", str(port),
+                          "--device", "cuda:0", flag, "2"])
+        with open(os.path.join(out, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t1 = time.perf_counter()
+        ranks = Ranks(["svpc_torch.parallel.worker", "cli_serve",
+                       os.path.join(out, "spec.json")], 2, out)
+        base = f"http://127.0.0.1:{port}"
+        results, errors = {}, []
+        try:
+            while True:
+                if ranks.failed() or time.perf_counter() - t1 > 400:
+                    fail("serve_mesh", f"{name} did not come up: "
+                                       f"{ranks.tails()}")
+                try:
+                    _get(base + "/healthz")
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - t1
+
+            def ask(vid):
+                try:
+                    results[vid] = _post(base + "/v1/captions",
+                                         dict(fx["specs"][vid],
+                                              video_id=vid))
+                except Exception as e:  # reported below, fails the phase
+                    errors.append(f"{vid}: {e!r}")
+
+            threads = [threading.Thread(target=ask, args=(v,))
+                       for v in fx["specs"]]
+            t2 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            burst_s = time.perf_counter() - t2
+            stats = _get(base + "/v1/stats")
+            ranks.procs[0].send_signal(signal.SIGTERM)
+            ranks.wait(timeout=600)
+        finally:
+            ranks.kill()
+        rows = _rank_rows(out, 2)
+        calls = {}
+        for r in range(2):
+            for f in torch.load(os.path.join(out, f"forms_rank{r}.pt"),
+                                weights_only=False):
+                key = (f"{name}_serve", f["key"][0], f["key"][1],
+                       f["key"][2], tuple(f["key"][3]))
+                if key in calls:
+                    calls[key]["calls"] += f["calls"]
+                else:
+                    calls[key] = {"inputs": tuple(t.to("cuda")
+                                                  for t in f["inputs"])
+                                  + (f["num_heads"],), "calls": f["calls"]}
+        forms, kernel_bad = _form_rows(calls)
+        bad += kernel_bad
+        got = {vid: [c["sentence"] for c in resp["captions"]]
+               for vid, (_, resp) in results.items()}
+        differ = [v for v, s in want.items() if got.get(v) != s]
+        row[name] = {"up_s": up_s, "burst_s": burst_s,
+                     "batches": stats["batches"],
+                     "mean_batch_videos": stats["mean_batch_videos"],
+                     "latency_ms": stats["latency_ms"],
+                     "batch_ms": stats["batch_ms"],
+                     "videos_captioned_differently": differ,
+                     "launches_by_rank": [r["launches"] for r in rows],
+                     "heads_by_rank": [r["heads"] for r in rows],
+                     "forms": forms}
+        launches += rows
+        if errors or differ:
+            bad.append(f"{name}: {errors or differ}")
+        for r in rows:
+            l = r["launches"]
+            if not (l["fused_attention.tile.f32"]
+                    and l["fused_attention.decode.f32"]):
+                bad.append(f"{name}: a kernel path did not launch on a "
+                           f"rank: {l}")
+            if l["fused_attention"] != sum(r["heads"].values()):
+                bad.append(f"{name}: an attention call did not launch the "
+                           "kernel")
+            if set(r["heads"]) != {"6" if name == "tp2" else "12"}:
+                bad.append(f"{name}: head counts {r['heads']}")
+    total = _sum_launches(launches)
+    row.update(phase_s=time.perf_counter() - t0, launches=total,
+               card=card_line())
+    if bad:
+        fail("serve_mesh", f"{bad}: {json.dumps(row, default=str)}")
+    emit(dict(row, ok=True))
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2596,14 +2964,16 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build) \
             as workdir:
         phases = {}
-        service, fx, ckpt, phases["serve"] = phase_serve(args.seed, workdir)
+        service, fx, ckpt, phases["serve"], captions = phase_serve(
+            args.seed, workdir)
         phase_parity(service, fx, ckpt)
         phase_native(service, fx, workdir)
-        service16, _, _, phases["serve_bf16"] = phase_serve(
+        service16, _, _, phases["serve_bf16"], _ = phase_serve(
             args.seed, workdir, "bfloat16", fx, ckpt)
         phase_parity_bf16(service16, fx, ckpt)
         del service, service16
         phases["serve_upload"] = phase_serve_upload(fx, ckpt, workdir)
+        phases["serve_mesh"] = phase_serve_mesh(fx, ckpt, captions, workdir)
         phases["train"], train_fx, _, train_dir = phase_train(args.seed,
                                                                workdir)
         phases["train_bf16"], train_dir16 = phase_train_bf16(
@@ -2611,6 +2981,7 @@ def main(argv=None) -> int:
         phases["train_knobs"] = phase_train_knobs(args.seed, workdir,
                                                   train_fx)
         phases["parallel"] = phase_parallel(args.seed, workdir, train_fx)
+        phases["pipeline"] = phase_pipeline(args.seed, workdir, train_fx)
         phases["evaluate"] = phase_evaluate(train_fx, train_dir)
         phases["evaluate_bf16"] = phase_evaluate_bf16(train_fx, train_dir,
                                                       train_dir16)

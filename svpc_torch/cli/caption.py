@@ -17,7 +17,9 @@ per clip.
 
 ``--checkpoint`` is a checkpoint of the port's trainer or, with
 ``--torch_checkpoint``, a reference ``.chkpt``.  Runs on the card unless
-``--device cpu``.
+``--device cpu``.  The common mesh flags are taken as svpc_tpu's CLI
+takes them: ``--dp_size`` / ``--tp_size`` are accepted and no mesh is
+built (one process decodes), ``--pp_size`` > 1 is refused.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ import argparse
 import json
 import logging
 
-from svpc_torch.cli.common import (add_common_args, config_from_args,
-                                   load_eval_model)
+from svpc_torch.cli.common import (add_common_args, add_mesh_args,
+                                   config_from_args, load_eval_model,
+                                   reject_pp)
 from svpc_torch.data.pipeline import CaptionDataset, inference_entries
 from svpc_torch.precision import resolve_device
 from svpc_torch.train.loop import run_greedy_eval
@@ -40,6 +43,7 @@ def main(argv=None) -> dict:
                         format="%(asctime)-10s: %(message)s")
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--input_json", required=True,
                    help="spec: {vid: {timestamps, ingredients}}")
@@ -51,6 +55,7 @@ def main(argv=None) -> dict:
     p.add_argument("--torch_checkpoint", action="store_true",
                    help="--checkpoint is a reference PyTorch .chkpt file")
     args = p.parse_args(argv)
+    reject_pp(args, p)
     device = resolve_device(args.device)
     cfg = config_from_args(args).replace_train(
         val_batch_size=args.val_batch_size)

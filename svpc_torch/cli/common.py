@@ -1,9 +1,10 @@
 """Shared CLI argument handling and checkpoint loading, from
 svpc_tpu/cli/common.py: the flags every CLI takes (data paths, geometry,
-layout, device), the mesh flags of ``cli.train`` and ``cli.evaluate``,
-the training flags of ``cli.train``, for what the port's trainer
-supports, and the model loader of the inference CLIs (``evaluate``,
-``caption``, ``serve``)."""
+layout, device), the mesh flags (``--dp_size``, ``--tp_size``,
+``--pp_size``; the pipeline only on ``cli.train``, the inference CLIs
+refuse it with ``reject_pp``), the training flags of ``cli.train``, and
+the model loader of the inference CLIs (``evaluate``, ``caption``,
+``serve``, ``dump_memories``)."""
 
 from __future__ import annotations
 
@@ -46,17 +47,29 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
 
 
 def add_mesh_args(p: argparse.ArgumentParser, train: bool = False) -> None:
-    """The dp x tp mesh (parallel/mesh.py; one process a rank, started by
-    torchrun with ``--nproc_per_node dp_size * tp_size``), and for
-    ``cli.train`` ZeRO-1, per-rank sharded data and the pipeline axis
-    svpc_tpu has (not ported: ``--pp_size > 1`` is refused)."""
+    """The dp x pp x tp mesh (parallel/mesh.py; one process a rank,
+    started by torchrun with ``--nproc_per_node dp_size * pp_size *
+    tp_size``): ``--pp_size`` on every CLI as svpc_tpu's take it (the
+    inference CLIs refuse values above 1, ``reject_pp``), and for
+    ``cli.train`` the microbatch count, ZeRO-1 and per-rank sharded
+    data."""
     p.add_argument("--dp_size", type=int, default=1)
     p.add_argument("--tp_size", type=int, default=1,
                    help="tensor-parallel axis (Megatron attention/FFN/vocab "
                         "sharding; the vocabulary tables are zero-padded to "
                         "a tp multiple)")
+    p.add_argument("--pp_size", type=int, default=1,
+                   help="pipeline-parallel stages (GPipe over the clip "
+                        "encoder and decoder trunks, "
+                        "svpc_torch/parallel/pipeline.py; cli.train only); "
+                        "must divide num_hidden_layers; the same trajectory "
+                        "as pp=1 up to summation order")
     if not train:
         return
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="microbatches per pipelined trunk call (0 = auto: "
+                        "2 * pp_size, clamped to a divisor of the per-dp-"
+                        "shard batch)")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: shard the Adam moments and the EMA shadow "
                         "over dp (per-rank optimizer memory / dp; numerics "
@@ -66,9 +79,18 @@ def add_mesh_args(p: argparse.ArgumentParser, train: bool = False) -> None:
                    help="each rank builds only its own dp block of every "
                         "training batch (byte-equal to that block of the "
                         "global build; needs the packed layout)")
-    p.add_argument("--pp_size", type=int, default=1,
-                   help="svpc_tpu's pipeline-parallel stages; not ported "
-                        "yet, so only 1 is accepted")
+
+
+def reject_pp(args, parser) -> None:
+    """Inference-side CLIs take the common --pp_size flag (shared arg
+    surface) but never pipeline: decode is latency-bound KV-cached work
+    where pipeline stages would only add hand-off latency.  Fail loudly
+    instead of silently ignoring the flag (svpc_tpu/cli/common.py)."""
+    if getattr(args, "pp_size", 1) > 1:
+        parser.error("--pp_size applies to cli.train only; decode runs "
+                     "the KV-cached incremental path where a pipeline "
+                     "would only add stage hand-off latency (scale "
+                     "inference with --dp_size/--tp_size instead)")
 
 
 def config_from_args(args) -> Config:
@@ -99,7 +121,8 @@ def config_from_args(args) -> Config:
             zero1=getattr(args, "zero1", False),
             multihost_sharded_data=getattr(args, "multihost_sharded_data",
                                            False),
-            pp_size=getattr(args, "pp_size", 1)),
+            pp_size=getattr(args, "pp_size", 1),
+            pp_microbatches=getattr(args, "pp_microbatches", 0)),
     )
     cfg.model.validate()
     return cfg

@@ -28,7 +28,8 @@ import logging
 import os
 
 from svpc_torch.cli.common import (add_common_args, add_mesh_args,
-                                   config_from_args, load_eval_model)
+                                   config_from_args, load_eval_model,
+                                   reject_pp)
 from svpc_torch.data.anet import SPLIT_FILES, para_reference_files
 from svpc_torch.data.pipeline import CaptionDataset
 from svpc_torch.evaluation import evaluate_submission
@@ -87,6 +88,7 @@ def main(argv=None) -> dict:
                         format="%(asctime)-10s: %(message)s")
     p = _parser()
     args = p.parse_args(argv)
+    reject_pp(args, p)
     if args.n_best > 1 and not args.use_beam:
         p.error("--n_best > 1 requires --use_beam (greedy decode yields "
                 "a single hypothesis)")

@@ -36,6 +36,19 @@ API (JSON over HTTP):
 
 Errors: 400 (bad spec / unknown video), 411 (chunked body), 502 (device
 batch failed), 503 (decode timeout), 500.
+
+On a dp x tp mesh (svpc_tpu's ``--dp_size`` / ``--tp_size``)::
+
+    torchrun --nproc_per_node D*T -m svpc_torch.cli.serve ... \
+        --dp_size D --tp_size T
+
+each rank holds its tp shards and decodes its dp block of every batch
+(``--batch_videos`` must be a multiple of D); rank 0 listens and batches,
+the other ranks follow it (svpc_torch/serving.py) and exit when it shuts
+down.  When a batch's collectives fail (a follower died, say) the ranks
+are out of step: rank 0 answers that batch 502, stops listening and exits
+non-zero, so a supervisor sees it go.  ``--pp_size`` > 1 is refused, as
+svpc_tpu refuses it.
 """
 
 from __future__ import annotations
@@ -48,10 +61,12 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from svpc_torch.cli.common import (add_common_args, config_from_args,
-                                   load_checkpoint_model)
+from svpc_torch.cli.common import (add_common_args, add_mesh_args,
+                                   config_from_args, load_checkpoint_model,
+                                   reject_pp)
 from svpc_torch.serving import (CaptionService, DecodeFailure, DecodeTimeout,
                                 DynamicBatcher, ServingError)
+from svpc_torch.train.loop import mesh_for
 
 logger = logging.getLogger(__name__)
 
@@ -102,6 +117,9 @@ class CaptionHandler(BaseHTTPRequestHandler):
         srv = self.server
         if self.path == "/healthz":
             svc = srv.service
+            if svc.broken.is_set():  # the mesh failed; shutting down
+                self._reply(503, {"status": "broken"})
+                return
             self._reply(200, {
                 "status": "ok",
                 "model_mode": svc.cfg.model.model_mode,
@@ -242,6 +260,7 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--checkpoint", required=True,
                    help="a checkpoint of svpc_torch.cli.train (e.g. "
                         "<workdir>/checkpoint_best)")
@@ -277,16 +296,20 @@ def _parser() -> argparse.ArgumentParser:
 
 def build_service(argv=None):
     """Parse the daemon's flags, load the checkpoint and warm a
-    CaptionService -> (service, args)."""
+    CaptionService -> (service, args); on a mesh (every rank calls it)
+    the service's ``mesh`` says which rank leads."""
     p = _parser()
     args = p.parse_args(argv)
+    reject_pp(args, p)
     if args.n_best > 1 and not args.use_beam:
         p.error("--n_best > 1 requires --use_beam (greedy decode yields "
                 "a single hypothesis)")
     if args.use_beam and args.n_best > args.beam_size:
         p.error(f"--n_best {args.n_best} cannot exceed "
                 f"--beam_size {args.beam_size}")
-    cfg, model = load_checkpoint_model(config_from_args(args), args)
+    cfg = config_from_args(args)
+    mesh = mesh_for(cfg, args.device)
+    cfg, model = load_checkpoint_model(cfg, args)
     buckets = ([int(b) for b in args.clip_buckets.split(",")]
                if args.clip_buckets else None)
     service = CaptionService(cfg, model, batch_videos=args.batch_videos,
@@ -295,7 +318,7 @@ def build_service(argv=None):
                              n_best=args.n_best if args.use_beam else 1,
                              clip_buckets=buckets,
                              upload_dir=args.upload_dir or None,
-                             device=args.device)
+                             mesh=mesh, device=args.device)
     return service, args
 
 
@@ -303,6 +326,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)-10s: %(message)s")
     service, args = build_service(argv)
+    if service.mesh is not None and not service.mesh.is_main:
+        service.follow()  # until rank 0 shuts down
+        return
     server = start_server(service, args.host, args.port,
                           max_wait_ms=args.max_wait_ms,
                           request_timeout=args.request_timeout)
@@ -313,14 +339,23 @@ def main(argv=None):
     stop_requested = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop_requested.set())
     try:
-        while not stop_requested.wait(timeout=1.0):
+        while not (stop_requested.wait(timeout=1.0)
+                   or service.broken.is_set()):
             pass
-        logger.info("SIGTERM: draining and shutting down")
+        if stop_requested.is_set():
+            logger.info("SIGTERM: draining and shutting down")
     except KeyboardInterrupt:
         logger.info("shutting down")
     finally:
         stop_server(server)
+        service.close()
+    if service.broken.is_set():
+        raise SystemExit("svpc_torch.cli.serve: the mesh failed; its ranks "
+                         "are out of step")
 
 
 if __name__ == "__main__":
+    from svpc_torch.parallel.mesh import close_distributed
+
     main()
+    close_distributed()

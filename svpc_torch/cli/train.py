@@ -16,16 +16,22 @@ in ``--workdir`` too (``--no_tensorboard``: csv logs only), and
 ``--profile_steps N`` writes a ``torch.profiler`` trace of N steady-state
 host batches to ``<workdir>/profile/trace.json``.
 
-Data- and tensor-parallel (one process a rank, rank 0 writing)::
+Data-, pipeline- and tensor-parallel (one process a rank, rank 0
+writing)::
 
     torchrun --nproc_per_node N -m svpc_torch.cli.train ... \
-      --dp_size D --tp_size T [--zero1] [--multihost_sharded_data]
+      --dp_size D --pp_size P --tp_size T [--pp_microbatches K] \
+      [--zero1] [--multihost_sharded_data]
 
-with N = D * T; each rank runs on ``cuda:LOCAL_RANK`` over NCCL (gloo with
-``--device cpu``).  Across hosts torchrun's own rendezvous does what
-svpc_tpu's ``--multihost`` does (``--nnodes``, ``--node_rank``,
-``--rdzv_endpoint``); no flag of this CLI is needed.  ``--pp_size > 1``
-(svpc_tpu's GPipe) is not ported yet and is refused.
+with N = D * P * T; each rank runs on ``cuda:LOCAL_RANK`` over NCCL (gloo
+with ``--device cpu``; ``--device cuda:0`` puts every rank on one card,
+over gloo).  ``--pp_size P`` cuts the clip encoder's and the decoder's
+layers into P stages (P must divide ``--num_hidden_layers``), each rank
+holding only its stage's layers, their Adam moments and EMA, and runs
+them on svpc_tpu's GPipe schedule of K microbatches (0: 2 * P).  Across
+hosts torchrun's own rendezvous does what svpc_tpu's ``--multihost`` does
+(``--nnodes``, ``--node_rank``, ``--rdzv_endpoint``); no flag of this CLI
+is needed.
 """
 
 from __future__ import annotations
@@ -63,10 +69,6 @@ def main(argv=None):
                         "step; a mid-epoch checkpoint resumes inside its "
                         "epoch exactly)")
     args = p.parse_args(argv)
-    if args.pp_size > 1:
-        p.error("--pp_size > 1: pipeline parallelism (svpc_tpu's GPipe) is "
-                "not ported to svpc_torch yet (ROADMAP.md, Queue 1); use "
-                "--dp_size / --tp_size")
     cfg = train_config_from_args(args)
     if args.debug:
         args.max_steps_per_epoch = 1

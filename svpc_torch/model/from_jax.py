@@ -151,10 +151,24 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _plain(tree):
+    """Nested mappings (flax's FrozenDict included) as plain dicts."""
+    if hasattr(tree, "items"):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
+
+
 def state_dict_from_jax(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """JAX params (a nested dict of numpy arrays, with or without the
-    top-level ``"params"`` key) -> the port's state dict (CPU float32)."""
-    tree = params["params"] if "params" in params else params
+    top-level ``"params"`` key) -> the port's state dict (CPU float32).
+    A pipeline-resident tree of svpc_tpu's ``--pp_size`` runs (its trunks'
+    layers stacked in ``layers`` subtrees) is unstacked first, with the
+    port's copy of ``unstack_trunk_params``."""
+    from svpc_torch.parallel.pipeline import (has_stacked_trunks,
+                                              unstack_trunk_params)
+    tree = _plain(params["params"] if "params" in params else params)
+    if has_stacked_trunks(tree):
+        tree = unstack_trunk_params(tree)
     flat = _flatten(tree)
     out: Dict[str, torch.Tensor] = {}
     for f_key, (t_key, transform) in build_mapping(

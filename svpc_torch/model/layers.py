@@ -29,6 +29,12 @@ attention output and FFN output projections, all-reduced), a
 ``MultiHeadAttention`` then holds ``num_heads / tp`` heads, and the
 decoder gathers the heads before its LayerNorms.  Dropout draws over the
 global shape (``parallel.mesh.uniform``).
+
+On a mesh with a pp axis (``SVPCModel.shard``) the clip encoder and the
+decoder hold only their stage's layers (``StageLayers``) and run them
+through the GPipe schedule of parallel/pipeline.py (``_pp_trunk_call``,
+svpc_tpu's ``Encoder._pp_call`` / ``Decoder._pp_call``); the decoder's
+KV-cached ``step`` stays sequential, as in svpc_tpu.
 """
 
 from __future__ import annotations
@@ -44,8 +50,11 @@ from torch import nn
 from svpc_torch.config import ModelConfig
 from svpc_torch.ops.attention import attention_plain, fused_attention
 from svpc_torch.parallel.collectives import (copy_to_tp, gather_from_tp,
-                                             reduce_from_tp)
+                                             reduce_from_tp, trunk_entry)
 from svpc_torch.parallel.mesh import fresh_generator, module_tp_dim, uniform
+from svpc_torch.parallel.pipeline import (StageDraws, auto_microbatches,
+                                          gpipe, merge_microbatches,
+                                          split_microbatches)
 from svpc_torch.precision import check_compute_dtype
 
 
@@ -297,17 +306,94 @@ def _run_layers(layers, remat: bool, x, *args, deterministic: bool,
     return x
 
 
+class StageLayers(nn.Module):
+    """A pipeline stage's block of a trunk's layers under their global
+    indices, so the state-dict names stay ``layer.<i>``; iterates them in
+    order, as the ``nn.ModuleList`` it replaces."""
+
+    def __init__(self, layers: nn.ModuleList, keep: range):
+        super().__init__()
+        for i in keep:
+            self.add_module(str(i), layers[i])
+        self.indices = list(keep)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+
+class _Pipelined:
+    """A trunk's place on the pipeline: the mesh and the requested
+    microbatch count (0: auto)."""
+
+    def __init__(self, mesh, microbatches: int):
+        self.mesh, self.microbatches = mesh, microbatches
+
+
+def _pp_trunk_call(owner, x, riding, consts, deterministic: bool,
+                   generator):
+    """x through the owner's stage-resident layers on the GPipe schedule
+    (svpc_tpu/model/layers.py ``_pp_trunk_call``): ``riding`` are the
+    batch-major tensors each layer reads unchanged (masks, the encoder
+    output), ``consts`` its other arguments; each layer is called
+    ``layer(h, *riding, *consts, deterministic, generator)``.  The batch
+    is split into microbatches (``auto_microbatches``), dropout draws
+    come from a ``StageDraws`` of ``generator``, and ``--remat`` wraps
+    each layer application, as svpc_tpu's ``gpipe(remat=cfg.remat)``."""
+    pl = owner.pipelined
+    mesh = pl.mesh
+    n_micro = auto_microbatches(x.shape[0] * mesh.dp_size, pl.microbatches,
+                                mesh.dp_size, mesh.pp_size)
+    ins = [trunk_entry(x, mesh.pp_group)] + [
+        trunk_entry(r, mesh.pp_group) if r.requires_grad else r
+        for r in riding]
+    mbs = [split_microbatches(a, n_micro) for a in ins]
+    layers = list(zip(owner.layer.indices, owner.layer))
+    remat = owner.remat and torch.is_grad_enabled()
+    draws = None
+    if not deterministic and (owner.dropout_p > 0):
+        def probe(rec):
+            layers[0][1](mbs[0][0][:1], *(m[0][:1] for m in mbs[1:]),
+                         *consts, False, rec)
+
+        draws = StageDraws(generator, len(layers) * mesh.pp_size,
+                           owner.layer.indices, probe, x.shape[0], n_micro,
+                           x.device)
+
+    def stage(act, j):
+        h, *rest = act
+        for i, layer in layers:
+            g = None if draws is None else draws.for_layer(i, j)
+            if remat:
+                h = remat_layer(layer, g, h, *rest, *consts, deterministic)
+            else:
+                h = layer(h, *rest, *consts, deterministic, g)
+        return (h, *rest)
+
+    return merge_microbatches(gpipe(stage, mbs, mesh))
+
+
 class Encoder(nn.Module):
-    """Stack of EncoderLayers (reference BertEncoderNoMemoryUntied)."""
+    """Stack of EncoderLayers (reference BertEncoderNoMemoryUntied);
+    ``pipelined`` (set by ``SVPCModel.shard`` on a pp mesh) routes it
+    through the GPipe schedule over its stage's layers."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.remat = cfg.remat
+        self.dropout_p = max(cfg.hidden_dropout_prob,
+                             cfg.attention_probs_dropout_prob)
+        self.pipelined: Optional[_Pipelined] = None
         self.layer = nn.ModuleList(EncoderLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x, mask_1d, diagonal_mask: bool = False,
                 deterministic: bool = True, generator=None):
+        if self.pipelined is not None:
+            return _pp_trunk_call(self, x, (mask_1d,), (diagonal_mask,),
+                                  deterministic, generator)
         return _run_layers(self.layer, self.remat, x, mask_1d,
                            diagonal_mask, deterministic=deterministic,
                            generator=generator)
@@ -373,14 +459,26 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
+    """``pipelined`` routes the teacher-forced stack through the GPipe
+    schedule as Encoder's; the incremental ``step`` / ``project_enc_kv``
+    decode stays sequential (svpc_tpu does not pipeline it: per-token
+    KV-cached work is latency-bound), on a model holding the whole
+    trunk."""
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.remat = cfg.remat
+        self.dropout_p = max(cfg.hidden_dropout_prob,
+                             cfg.attention_probs_dropout_prob)
+        self.pipelined: Optional[_Pipelined] = None
         self.layer = nn.ModuleList(DecoderLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, dec, dec_mask, enc_out, enc_mask,
                 deterministic: bool = True, generator=None):
+        if self.pipelined is not None:
+            return _pp_trunk_call(self, dec, (dec_mask, enc_out, enc_mask),
+                                  (), deterministic, generator)
         return _run_layers(self.layer, self.remat, dec, dec_mask, enc_out,
                            enc_mask, deterministic=deterministic,
                            generator=generator)

@@ -24,7 +24,11 @@ FFN columns and the vocabulary split over tp, the head's logits gathered
 before the softmax, the rest replicated.  A model is always built whole
 (an initializer draws every full tensor from the one generator, a
 checkpoint loads whole) and then sharded, so tp=T starts from tp=1's
-weights; ``full_state_dict`` gathers them back.
+weights; ``full_state_dict`` gathers them back.  On a mesh with a pp axis
+the clip encoder and the decoder first keep only their stage's layers
+and run pipelined (model/layers.py ``_pp_trunk_call``): the packed and
+dense clip encodes and the text decoder go through the GPipe schedule,
+everything else runs on every stage alike.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from svpc_torch.model.embeddings import (IngredientEmbeddings, TextEmbeddings,
                                          add_position_encoding, lookup,
                                          sinusoid_table)
 from svpc_torch.model.layers import (Decoder, Encoder, Linear,
-                                     LMPredictionHead, MultiHeadAttention)
+                                     LMPredictionHead, MultiHeadAttention,
+                                     StageLayers, _Pipelined)
 from svpc_torch.model.lstm import BiLSTM
 from svpc_torch.model.pointer import pointer_generator
 from svpc_torch.model.reasoner import EntityReasoner, ReasonerOutputs
@@ -52,8 +57,10 @@ from svpc_torch.ops.gumbel import gumbel_softmax_st
 from svpc_torch.ops.losses import (asymmetric_loss_sum, bce_sum,
                                    label_smoothing_kl)
 from svpc_torch.parallel.collectives import copy_to_tp, reduce_from_tp
-from svpc_torch.parallel.mesh import (gather_params, module_tp_dim,
-                                      shard_module, shard_params)
+from svpc_torch.parallel.mesh import (check_stages, gather_params,
+                                      gather_stages, module_tp_dim,
+                                      shard_module, shard_params,
+                                      stage_layers, stage_of)
 from svpc_torch.precision import check_compute_dtype
 
 NEG_INF = -1e30
@@ -192,14 +199,27 @@ class SVPCModel(nn.Module):
         self.param_tp_dims = {n: None for n in self.full_shapes}
 
     # ------------------------------------------------------------------ #
-    # tensor parallelism
+    # tensor and pipeline parallelism
     # ------------------------------------------------------------------ #
 
-    def shard(self, mesh, report: Optional[dict] = None) -> "SVPCModel":
-        """Keep only this rank's tp shards of the (whole) parameters, in
-        place; a dp-only mesh changes nothing but ``self.mesh``.
+    def shard(self, mesh, report: Optional[dict] = None,
+              pp_microbatches: int = 0) -> "SVPCModel":
+        """Keep only this rank's share of the (whole) parameters, in
+        place: on a pp mesh the clip encoder's and the decoder's layers
+        of this stage (which then run pipelined, ``pp_microbatches``
+        microbatches a call, 0 for svpc_tpu's auto count), then the tp
+        shards; a dp-only mesh changes nothing but ``self.mesh``.
         ``report`` as ``parallel.mesh.shard_params``."""
         self.mesh = mesh
+        if mesh is not None and mesh.pp_size > 1:
+            n_layers = self.cfg.num_hidden_layers
+            check_stages(n_layers, mesh.pp_size)
+            for trunk in (self.encoder, self.decoder):
+                trunk.layer = StageLayers(trunk.layer,
+                                          stage_layers(n_layers, mesh))
+                trunk.pipelined = _Pipelined(mesh, pp_microbatches)
+            self.param_tp_dims = {n: None for n, _ in
+                                  self.named_parameters()}
         if mesh is None or mesh.tp_size == 1:
             return self
         heads = self.cfg.num_attention_heads
@@ -215,14 +235,28 @@ class SVPCModel(nn.Module):
         return self
 
     def full_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The whole parameters, gathered over tp (every rank of the tp
-        group calls it)."""
-        return gather_params(self.state_dict(), self.param_tp_dims,
-                             self.mesh)
+        """The whole parameters, gathered over tp and over pp (every rank
+        of the mesh calls it), in the whole model's order."""
+        return gather_stages(
+            gather_params(self.state_dict(), self.param_tp_dims, self.mesh),
+            self.mesh)
+
+    def stage_share(self, state: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The entries of a whole state dict this rank's pipeline stage
+        holds."""
+        mesh = self.mesh
+        if mesh is None or mesh.pp_size == 1:
+            return state
+        n_layers = self.cfg.num_hidden_layers
+        return {k: v for k, v in state.items()
+                if stage_of(k, n_layers, mesh.pp_size) in (None,
+                                                           mesh.pp_index)}
 
     def load_full_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
-        """Load whole parameters (this rank keeps its tp shards),
-        strictly."""
+        """Load whole parameters (this rank keeps its stage's layers and
+        its tp shards), strictly."""
+        state = self.stage_share(state)
         if self.mesh is not None and self.mesh.tp_size > 1:
             state = shard_params(state, self.mesh)
         self.load_state_dict(state, strict=True)

@@ -15,9 +15,30 @@ eager PyTorch each one is written out.  These are Megatron's:
   ``all_reduce_dp``   dp all-reduce (sum) forward and backward: gradients
                       and metrics.
 
-Each takes the group to run on (a ``Mesh``'s ``tp_group`` or
-``dp_group``) and calls ``torch.distributed`` whatever the backend: gloo
-on the CPU (and, on one card, with CUDA tensors), NCCL across cards.
+and the pipeline's (svpc_tpu's ``lax.ppermute`` and ``psum`` inside its
+gpipe ``shard_map``, whose transposes JAX derives):
+
+  ``ppermute``        forward: this stage's block to stage + 1 (stage 0
+                      gets the last stage's, which it never reads);
+                      backward: the gradient to stage - 1;
+  ``trunk_entry``     identity forward, pp all-reduce backward: only stage
+                      0 consumes the trunk's input, but every stage runs
+                      the replicated embeddings before it and needs their
+                      whole gradient;
+  ``trunk_exit``      forward: the last stage's output buffer to every
+                      stage (an all-reduce of the buffer, zero on the other
+                      stages); backward: identity, since every stage runs
+                      the same head and loss and so already holds the one
+                      cotangent (a sum would count it pp times).
+
+Each takes the group to run on (a ``Mesh``'s ``tp_group``, ``dp_group``
+or ``pp_group``) and calls ``torch.distributed`` whatever the backend:
+gloo on the CPU (and, on one card, with CUDA tensors), NCCL across cards.
+``ppermute`` is an all-gather over the pp group that keeps the
+neighbour's block, not a ``send`` / ``recv`` pair: gloo's all-gather is
+known to take CUDA tensors on one card, and every stage issuing the same
+collective in the same order is what keeps the pipeline's backward free
+of deadlock.
 """
 
 from __future__ import annotations
@@ -32,7 +53,7 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-class _CopyToTP(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
@@ -43,7 +64,7 @@ class _CopyToTP(torch.autograd.Function):
         return _all_reduce(grad, ctx.group), None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         return _all_reduce(x, group)
@@ -76,12 +97,45 @@ class _AllReduceDP(torch.autograd.Function):
         return _all_reduce(grad, ctx.group), None
 
 
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, +1), None
+
+
+def _shift(x: torch.Tensor, group, by: int) -> torch.Tensor:
+    """The block of the stage ``by`` away (modulo the group's size)."""
+    parts = all_gather_list(x, group)
+    return parts[(dist.get_rank(group) + by) % len(parts)]
+
+
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
-    return _CopyToTP.apply(x, group)
+    return _CopyTo.apply(x, group)
 
 
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
-    return _ReduceFromTP.apply(x, group)
+    return _ReduceFrom.apply(x, group)
+
+
+def ppermute(x: torch.Tensor, group) -> torch.Tensor:
+    return _PPermute.apply(x, group)
+
+
+def trunk_entry(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyTo.apply(x, group)
+
+
+def trunk_exit(buf: torch.Tensor, is_last: torch.Tensor, group
+               ) -> torch.Tensor:
+    """``buf`` of the last stage (``is_last`` a bool tensor, so the graph
+    is the same on every stage) on every stage of ``group``."""
+    return _ReduceFrom.apply(torch.where(is_last, buf, torch.zeros_like(buf)),
+                             group)
 
 
 def gather_from_tp(x: torch.Tensor, group) -> torch.Tensor:
@@ -92,11 +146,16 @@ def all_reduce_dp(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceDP.apply(x, group)
 
 
+def all_gather_list(x: torch.Tensor, group) -> list:
+    """Every rank's ``x`` in rank order (no gradient)."""
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return parts
+
+
 def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order (no
     gradient): a sharded tensor made whole for a checkpoint, or each dp
     block's decoded tokens."""
-    x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    return torch.cat(all_gather_list(x, group), dim=dim)

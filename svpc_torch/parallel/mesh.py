@@ -1,21 +1,27 @@
-"""The dp x tp mesh and its sharding rules on ``torch.distributed``: the
-port of svpc_tpu/parallel/mesh.py.
+"""The dp x pp x tp mesh and its sharding rules on ``torch.distributed``:
+the port of svpc_tpu/parallel/mesh.py.
 
 svpc_tpu places arrays on a ``jax.sharding.Mesh`` and lets GSPMD insert
 the collectives.  Here each process is one mesh position: ``make_mesh``
-gives this rank's ``(dp_index, tp_index)`` and the process groups of its
-dp and tp axes, with tp innermost (rank = dp_index * tp + tp_index), as
-svpc_tpu orders its axes (the per-product tp all-reduces on the nearest
-links, the one gradient all-reduce a step across dp).  The model holds
-only its tp shards (``shard_module``), every rank runs its dp block of
-the batch (``shard_batch``), and the collectives are written out
+gives this rank's ``(dp_index, pp_index, tp_index)`` and the process
+groups of its dp, pp and tp axes, with tp innermost and dp outermost
+(rank = (dp_index * pp + pp_index) * tp + tp_index), as svpc_tpu orders
+its axes (the per-product tp all-reduces on the nearest links, the
+pipeline hand-offs next, the one gradient all-reduce a step across dp).
+The model holds only its tp shards (``shard_module``) of its pipeline
+stage's trunk layers (``stage_of``), every rank runs its dp block of the
+batch (``shard_batch``), and the collectives are written out
 (parallel/collectives.py).
 
 The partition rules are svpc_tpu's, keyed by the port's state-dict names
 and written for torch's layouts: a ``Linear.weight`` is (out, in), the
 transpose of a flax kernel, so svpc_tpu's ``P(None, "tp")`` on a
 column-parallel kernel is dim 0 here.  A spec is a tuple with one entry
-per dim: ``None``, ``"tp"``, ``"dp"`` or ``("tp", "dp")``.
+per dim: ``None``, ``"tp"``, ``"dp"`` or ``("tp", "dp")``.  Stage
+residency is svpc_tpu's ``P("pp", ...)`` on its stacked trunk layers: the
+port keeps per-layer tensors under their ``encoder.layer.<i>`` /
+``decoder.layer.<i>`` names, and layer i lives on stage ``i // (L / pp)``
+only.
 
 Losses are sums over examples, so the dp all-reduce of gradients gives
 the one-process gradient up to summation order, and every random draw of
@@ -36,7 +42,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from svpc_torch.parallel.collectives import gather_dim
+from svpc_torch.parallel.collectives import all_gather_list, gather_dim
 from svpc_torch.precision import resolve_device
 
 Spec = Tuple[Any, ...]
@@ -44,18 +50,38 @@ Spec = Tuple[Any, ...]
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place on the dp x tp mesh and its axes' groups."""
+    """This process's place on the dp x pp x tp mesh and its axes'
+    groups (``pp_group`` is None at pp=1)."""
     dp_size: int
     tp_size: int
     dp_index: int
     tp_index: int
     dp_group: Any = None
     tp_group: Any = None
+    pp_size: int = 1
+    pp_index: int = 0
+    pp_group: Any = None
 
     @property
     def is_main(self) -> bool:
         """Rank 0: the one that writes logs, predictions and checkpoints."""
-        return self.dp_index == 0 and self.tp_index == 0
+        return self.dp_index == 0 and self.tp_index == 0 and \
+            self.pp_index == 0
+
+    @property
+    def rank(self) -> int:
+        return (self.dp_index * self.pp_size + self.pp_index) \
+            * self.tp_size + self.tp_index
+
+
+def without_pp(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The dp x tp mesh of a sequential model on ``mesh``'s ranks: every
+    pp rank of a (dp, tp) position holds the whole trunk and runs what
+    its stage neighbours run (the KV-cached decode, which svpc_tpu does
+    not pipeline either).  ``is_main`` stays this rank's."""
+    if mesh is None or mesh.pp_size == 1:
+        return mesh
+    return dataclasses.replace(mesh, pp_size=1, pp_group=None)
 
 
 def free_port() -> int:
@@ -110,31 +136,46 @@ def close_distributed() -> None:
         dist.destroy_process_group()
 
 
-def make_mesh(dp_size: Optional[int] = None, tp_size: int = 1) -> Mesh:
-    """The dp x tp mesh over every rank of the default group (which
-    ``init_distributed`` makes): ``dp_size * tp_size`` must be the world
-    size (``dp_size=None`` takes the rest of it)."""
+def make_mesh(dp_size: Optional[int] = None, tp_size: int = 1,
+              pp_size: int = 1) -> Mesh:
+    """The dp x pp x tp mesh over every rank of the default group (which
+    ``init_distributed`` makes), placed as svpc_tpu's ``make_mesh``
+    reshapes its devices to (dp, pp, tp): ``dp_size * pp_size * tp_size``
+    must be the world size (``dp_size=None`` takes the rest of it).  A
+    group's ranks are in axis order, so a rank's place in its pp group is
+    its stage."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "init_distributed() (or start under torchrun)")
     world, rank = dist.get_world_size(), dist.get_rank()
     if dp_size is None:
-        dp_size = max(world // tp_size, 1)
-    if dp_size * tp_size != world:
-        raise ValueError(f"mesh {dp_size}x{tp_size} needs {dp_size * tp_size}"
-                         f" processes, the world has {world}")
-    dp_group = tp_group = None
+        dp_size = max(world // (tp_size * pp_size), 1)
+    n = dp_size * pp_size * tp_size
+    if n != world:
+        raise ValueError(f"mesh {dp_size}x{pp_size}x{tp_size} (dp x pp x "
+                         f"tp) needs {n} processes, the world has {world}")
+    at = lambda d, p, t: (d * pp_size + p) * tp_size + t
+    me = (rank // (pp_size * tp_size), rank // tp_size % pp_size,
+          rank % tp_size)
+    groups = {}
     # every rank creates every group, in the same order
-    for d in range(dp_size):
-        g = dist.new_group([d * tp_size + t for t in range(tp_size)])
-        if rank // tp_size == d:
-            tp_group = g
-    for t in range(tp_size):
-        g = dist.new_group([d * tp_size + t for d in range(dp_size)])
-        if rank % tp_size == t:
-            dp_group = g
-    return Mesh(dp_size, tp_size, rank // tp_size, rank % tp_size,
-                dp_group, tp_group)
+    for axis, size in (("tp", tp_size), ("dp", dp_size), ("pp", pp_size)):
+        if axis == "pp" and pp_size == 1:
+            continue
+        for d in range(dp_size):
+            for p in range(pp_size):
+                for t in range(tp_size):
+                    pos = {"dp": d, "pp": p, "tp": t}
+                    if pos[axis]:
+                        continue  # one group per line along the axis
+                    ranks = [at(*[i if a == axis else pos[a]
+                                  for a in ("dp", "pp", "tp")])
+                             for i in range(size)]
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[axis] = g
+    return Mesh(dp_size, tp_size, me[0], me[2], groups["dp"], groups["tp"],
+                pp_size, me[1], groups.get("pp"))
 
 
 # ---------------------------------------------------------------------- #
@@ -182,6 +223,86 @@ def shard_batch(mesh: Mesh, batch: dict, n_leading: int = 0) -> dict:
 # ---------------------------------------------------------------------- #
 # tensor parallelism
 # ---------------------------------------------------------------------- #
+
+# ---------------------------------------------------------------------- #
+# pipeline stages
+# ---------------------------------------------------------------------- #
+
+# the pipelined trunks; ``step_wise_encoder`` stays sequential on every
+# stage, as in svpc_tpu (parallel/pipeline.py PP_TRUNK_KEYS)
+PP_TRUNK_KEYS = ("encoder", "decoder")
+
+
+def trunk_layer(name: str) -> Optional[Tuple[str, int]]:
+    """``(trunk, i)`` for a pipelined trunk's ``<trunk>.layer.<i>.*``
+    name, else None."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[0] in PP_TRUNK_KEYS and \
+            parts[1] == "layer" and parts[2].isdigit():
+        return parts[0], int(parts[2])
+    return None
+
+
+def stage_of(name: str, n_layers: int, pp: int) -> Optional[int]:
+    """The stage that holds a tensor: ``i // (n_layers / pp)`` for trunk
+    layer i, None for a tensor every stage holds (svpc_tpu's ``P("pp",
+    ...)`` on the stacked layer axis)."""
+    hit = trunk_layer(name)
+    if hit is None or pp == 1:
+        return None
+    return hit[1] // (n_layers // pp)
+
+
+def check_stages(n_layers: int, pp: int) -> None:
+    """svpc_tpu's refusal of stages that do not split the trunks evenly."""
+    if pp > 1 and n_layers % pp:
+        raise ValueError(
+            f"pp_size={pp} must divide num_hidden_layers={n_layers} (each "
+            "pipeline stage takes an equal contiguous block of trunk "
+            "layers)")
+
+
+def stage_layers(n_layers: int, mesh: Optional[Mesh]) -> range:
+    """The trunk layers this rank's stage holds."""
+    if mesh is None or mesh.pp_size == 1:
+        return range(n_layers)
+    k = n_layers // mesh.pp_size
+    return range(mesh.pp_index * k, (mesh.pp_index + 1) * k)
+
+
+def gather_stages(tensors: Dict[str, torch.Tensor], mesh: Optional[Mesh]
+                  ) -> Dict[str, torch.Tensor]:
+    """Every stage's trunk tensors from this stage's (no gradient): each
+    local ``<trunk>.layer.<i>`` tensor is all-gathered over pp and stage
+    p's copy named for its layer ``i + (p - pp_index) * k``, k the layers
+    a stage holds (``tensors`` holds a stage's whole block); the other
+    tensors as they are.  The result is in the whole model's order where
+    ``tensors`` is in a stage's.  Every rank of the pp group calls it."""
+    if mesh is None or mesh.pp_size == 1:
+        return dict(tensors)
+    local: Dict[str, list] = {}   # trunk -> its local names, in order
+    for name in tensors:
+        hit = trunk_layer(name)
+        if hit is not None:
+            local.setdefault(hit[0], []).append(name)
+    out = {}
+    for name, t in tensors.items():
+        hit = trunk_layer(name)
+        if hit is None:
+            out[name] = t
+        elif name == local[hit[0]][0]:
+            # the whole trunk here: stage by stage, each in local order
+            trunk = hit[0]
+            k = len({trunk_layer(n)[1] for n in local[trunk]})
+            parts = [all_gather_list(tensors[n], mesh.pp_group)
+                     for n in local[trunk]]
+            for p in range(mesh.pp_size):
+                for n, got in zip(local[trunk], parts):
+                    i, rest = trunk_layer(n)[1], n.split(".", 3)[3]
+                    j = i + (p - mesh.pp_index) * k
+                    out[f"{trunk}.layer.{j}.{rest}"] = got[p]
+    return out
+
 
 def param_partition_spec(name: str) -> Spec:
     """svpc_tpu's Megatron rule for one parameter, by its state-dict name,
@@ -418,14 +539,15 @@ def uniform(shape, generator, device, tp_split: Optional[int] = None
             ) -> torch.Tensor:
     """``torch.rand(shape)`` from ``generator``; a ``GlobalDraws`` draws
     the global shape and returns this rank's block (``tp_split``: the dim
-    this rank holds a tp share of, e.g. the attention heads)."""
-    if isinstance(generator, GlobalDraws):
+    this rank holds a tp share of, e.g. the attention heads), a pipeline
+    stage's draws (parallel/pipeline.py) serve its microbatch's rows."""
+    if hasattr(generator, "uniform"):
         return generator.uniform(shape, device, tp_split)
     return torch.rand(shape, generator=generator, device=device)
 
 
 def fresh_generator(like):
     """An unseeded generator of ``like``'s kind on its device."""
-    if isinstance(like, GlobalDraws):
+    if hasattr(like, "fresh"):
         return like.fresh()
     return torch.Generator(device=like.device)

@@ -6,8 +6,8 @@ and the jobs a rank runs, for the CPU tests and for ``chip_smoke.py``.
 started once a rank by ``run_ranks`` (or by torchrun), each rank reading
 torchrun's variables.  ``spec`` holds ``device`` ("cpu", or "cuda:0" to
 put every rank on one card), ``backend`` (None: NCCL on a card, gloo on
-the CPU), ``dp`` / ``tp`` (the mesh; ``cfg.train``'s for ``train``) and
-``out`` (a directory), and per job:
+the CPU), ``dp`` / ``tp`` / ``pp`` (the mesh; ``cfg.train``'s for
+``train``) and ``out`` (a directory), and per job:
 
   steps    ``cfg`` (a Config dict), the whole initial weights (``weights``,
            a torch file of a state dict; else drawn from ``seed``),
@@ -16,19 +16,50 @@ the CPU), ``dp`` / ``tp`` (the mesh; ``cfg.train``'s for ``train``) and
            train split, ``train_batches``), and optionally the re-simulator's
            Gumbel noise (``noise``, a pickle of one global array a step,
            which replaces the sampler's draw): ``train_step`` on this
-           rank's block of each.  Rank 0 writes ``result.pt`` (the
-           losses, the whole parameters, moments and EMA shadow); every
-           rank writes ``rank<r>.json`` (bytes of its moments and shadow,
-           and what they would be without ZeRO-1, its peak memory).
-  train    ``train.loop.train(cfg, out, ...)`` with ``max_steps_per_epoch``;
-           rank 0 writes ``result.json`` (the steps and the history),
-           every rank ``rank<r>.json`` (its kernel launches).
+           rank's block of each, the trunks pipelined when ``pp`` > 1
+           (``cfg.train.pp_microbatches`` a call).  Rank 0 writes
+           ``result.pt`` (the losses, the whole parameters, moments and
+           EMA shadow); every rank writes ``rank<r>.json`` (its parameter
+           count, bytes of its moments and shadow, and what they would be
+           without ZeRO-1, its peak memory, its kernel launches).
+  train    ``train.loop.train(cfg, out, ...)`` with ``max_steps_per_epoch``
+           (a pp run when ``cfg.train.pp_size`` > 1); rank 0 writes
+           ``result.json`` (the steps and the history) and, with
+           ``record_forms``, ``forms.pt`` (the first inputs of each form
+           of attention call the run made, validation's); every rank
+           ``rank<r>.json`` (its kernel launches, their head counts, its
+           seconds and peak memory).
+  serve    a ``CaptionService`` on the dp x tp mesh from a trainer
+           checkpoint (``checkpoint``; ``batch_videos``, ``max_clips``)
+           for each ``(beam_size, n_best)`` of ``decoders``: rank 0
+           captions ``specs`` ({vid: spec}) with ``caption`` and closes the
+           service, the other ranks ``follow``.  Rank 0 writes
+           ``result.json`` (the captions of each decoder); every rank
+           writes ``rank<r>.json`` (kernel launches, the head counts its
+           attention calls used).
   decode   a trainer checkpoint (``checkpoint``) greedily decodes the first
            ``split`` batch of ``val_batch_size`` videos on the mesh, every
            attention call recorded.  Rank 0 writes ``result.pt`` (the
            gathered tokens, the first inputs of each attention form);
            every rank writes ``rank<r>.json`` (kernel launches, the head
            counts its attention calls used).
+  cli_serve
+           ``svpc_torch.cli.serve.main(argv)`` (``argv``, with the mesh
+           flags) on every rank, as torchrun would run the CLI; rank 0
+           serves until SIGTERM.  Every rank writes ``rank<r>.json``
+           (kernel launches and head counts from the end of the warm-up)
+           and, with ``record_forms``, ``forms_rank<r>.pt`` (the first
+           inputs of each attention form it ran after the warm-up).  With
+           ``fail_rank``, that rank's fill of each batch raises.
+  gpipe    the clip encoder's and the decoder's trunks of ``cfg`` at each
+           depth of ``layers`` and each ``remat`` setting, with dropout
+           on: the pipelined stage (parallel/pipeline.py) against the same
+           trunk run sequentially in this process from the same weights
+           and generator seed, the output and every gradient this stage
+           holds (its layers', the input's, the encoder output's).  Every
+           rank writes ``rank<r>.json`` (how far the worst element is
+           outside rtol = atol = 1e-5, and whether every layer output,
+           bubble ticks included, was finite).
   nccl     world size 1: the collectives of parallel/collectives.py on the
            device, forward and backward, and one dp1 x tp1 train step
            through the mesh path beside the same step without a mesh;
@@ -60,57 +91,81 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 # launcher
 # ---------------------------------------------------------------------- #
 
-def run_ranks(args: List[str], world: int, timeout: float, log_dir: str,
-              env: Optional[Dict[str, str]] = None) -> float:
+class Ranks:
     """``python -m <args>`` once a rank, as torchrun starts them on one
     host (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, a free local
-    ``MASTER_PORT``), from the repository root.  Each rank's output goes
-    to ``<log_dir>/rank<r>.log``.  Every rank is killed at ``timeout``
-    seconds or when one fails; raises with the logs' tails then.  Returns
-    the wall seconds."""
-    os.makedirs(log_dir, exist_ok=True)
-    base = dict(os.environ, MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
-                **(env or {}))
-    logs = [open(os.path.join(log_dir, f"rank{r}.log"), "w")
+    ``MASTER_PORT``), from the repository root; each rank's output goes
+    to ``<log_dir>/rank<r>.log``.  ``wait`` returns when every rank has
+    exited; every rank is killed at the timeout or when one fails, and it
+    raises with the logs' tails then (a server's ranks: ``wait`` after
+    shutting rank 0 down)."""
+
+    def __init__(self, args: List[str], world: int, log_dir: str,
+                 env: Optional[Dict[str, str]] = None):
+        os.makedirs(log_dir, exist_ok=True)
+        self.args, self.world, self.log_dir = args, world, log_dir
+        base = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+                    **(env or {}))
+        self.logs = [open(os.path.join(log_dir, f"rank{r}.log"), "w")
+                     for r in range(world)]
+        self.t0 = time.perf_counter()
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=ROOT, stdout=self.logs[r],
+            stderr=subprocess.STDOUT,
+            env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
             for r in range(world)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", *args], cwd=ROOT, stdout=logs[r],
-        stderr=subprocess.STDOUT,
-        env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
-        for r in range(world)]
-    failed = None
-    try:
-        while any(p.poll() is None for p in procs):
-            if time.perf_counter() - t0 > timeout:
-                failed = f"timed out after {timeout:.0f} s"
-                break
-            bad = [r for r, p in enumerate(procs)
-                   if p.poll() not in (None, 0)]
-            if bad:
-                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
-                break
-            time.sleep(0.05)
-        if failed is None:
-            bad = [r for r, p in enumerate(procs) if p.returncode]
-            if bad:
-                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
-    finally:
-        for p in procs:
+
+    def failed(self) -> Optional[str]:
+        """Why a rank failed so far, or None."""
+        bad = [r for r, p in enumerate(self.procs)
+               if p.poll() not in (None, 0)]
+        if bad:
+            return f"rank {bad[0]} exited {self.procs[bad[0]].returncode}"
+        return None
+
+    def wait(self, timeout: float) -> float:
+        """Wait for every rank (``timeout`` seconds from the start); the
+        wall seconds since the start."""
+        failed = None
+        try:
+            while any(p.poll() is None for p in self.procs):
+                if time.perf_counter() - self.t0 > timeout:
+                    failed = f"timed out after {timeout:.0f} s"
+                    break
+                failed = self.failed()
+                if failed:
+                    break
+                time.sleep(0.05)
+            failed = failed or self.failed()
+        finally:
+            self.kill()
+        if failed:
+            raise RuntimeError(f"{' '.join(self.args[:2])}: {failed}\n"
+                               + self.tails())
+        return time.perf_counter() - self.t0
+
+    def kill(self) -> None:
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
-        for f in logs:
+        for f in self.logs:
             f.close()
-    if failed:
-        tails = []
-        for r in range(world):
-            with open(os.path.join(log_dir, f"rank{r}.log")) as f:
-                tails.append(f"--- rank {r} ---\n" + f.read()[-3000:])
-        raise RuntimeError(f"{' '.join(args[:2])}: {failed}\n"
-                           + "\n".join(tails))
-    return time.perf_counter() - t0
+
+    def tails(self) -> str:
+        out = []
+        for r in range(self.world):
+            with open(os.path.join(self.log_dir, f"rank{r}.log")) as f:
+                out.append(f"--- rank {r} ---\n" + f.read()[-3000:])
+        return "\n".join(out)
+
+
+def run_ranks(args: List[str], world: int, timeout: float, log_dir: str,
+              env: Optional[Dict[str, str]] = None) -> float:
+    """``Ranks(args, world, log_dir, env).wait(timeout)``: the wall
+    seconds; raises when a rank fails or the timeout passes."""
+    return Ranks(args, world, log_dir, env).wait(timeout)
 
 
 def run_job(job: str, spec: dict, world: int, timeout: float,
@@ -194,10 +249,9 @@ def _nbytes(tensors) -> int:
 
 
 def _rank_file(spec, mesh, row: dict) -> None:
-    r = mesh.dp_index * mesh.tp_size + mesh.tp_index
-    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
-        json.dump(dict(row, dp_index=mesh.dp_index, tp_index=mesh.tp_index),
-                  f)
+    with open(os.path.join(spec["out"], f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(dict(row, dp_index=mesh.dp_index, tp_index=mesh.tp_index,
+                       pp_index=mesh.pp_index), f)
 
 
 def _cpu(tree):
@@ -214,6 +268,7 @@ def job_steps(spec, mesh, device) -> None:
     from svpc_torch.config import Config
     from svpc_torch.model import SVPCModel
     from svpc_torch.model.svpc import to_tensors
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
     from svpc_torch.parallel.mesh import shard_batch
     from svpc_torch.train.step import train_step
 
@@ -225,8 +280,10 @@ def job_steps(spec, mesh, device) -> None:
     else:
         model = SVPCModel(cfg.model,
                           torch.Generator().manual_seed(spec["seed"]))
-    model = model.shard(mesh).to(device)
+    model = model.shard(mesh, pp_microbatches=cfg.train.pp_microbatches
+                        ).to(device)
     state = train_state(cfg, model, spec["steps_per_epoch"], mesh)
+    reset_launches()
     if spec.get("batches"):
         with open(spec["batches"], "rb") as f:
             batches = pickle.load(f)
@@ -261,9 +318,10 @@ def job_steps(spec, mesh, device) -> None:
     if mesh.is_main:
         torch.save({"losses": losses, "state": _cpu(payload)},
                    os.path.join(spec["out"], "result.pt"))
-    _rank_file(spec, mesh, {"bytes": held, "bytes_without_zero1": whole,
+    _rank_file(spec, mesh, {"n_params": local, "bytes": held,
+                            "bytes_without_zero1": whole,
                             "max_memory_allocated": peak,
-                            "losses": losses})
+                            "losses": losses, "launches": dict(LAUNCHES)})
 
 
 def job_train(spec, mesh, device) -> None:
@@ -273,19 +331,29 @@ def job_train(spec, mesh, device) -> None:
 
     cfg = Config.from_dict(spec["cfg"])
     reset_launches()
-    res = loop.train(cfg, spec["out"], device=device,
-                     max_steps_per_epoch=spec.get("max_steps_per_epoch"),
-                     eval_language=spec.get("eval_language", True),
-                     tensorboard=False)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with FormRecorder(keep=spec.get("record_forms", False)) as rec:
+        res = loop.train(cfg, spec["out"], device=device,
+                         max_steps_per_epoch=spec.get("max_steps_per_epoch"),
+                         eval_language=spec.get("eval_language", True),
+                         tensorboard=False)
     mesh = res["state"].mesh
     if mesh.is_main:
         with open(os.path.join(spec["out"], "result.json"), "w") as f:
             json.dump({"steps": res["steps"], "history": res["history"]}, f)
-    _rank_file(spec, mesh, {"launches": dict(LAUNCHES)})
+        if rec.keep:
+            torch.save(rec.form_list(),
+                       os.path.join(spec["out"], "forms.pt"))
+    _rank_file(spec, mesh, {
+        "launches": dict(LAUNCHES), "heads": rec.heads,
+        "train_s": time.perf_counter() - t0,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None)})
 
 
 def job_decode(spec, mesh, device) -> None:
-    import svpc_torch.model.layers as layers
     from svpc_torch.config import Config
     from svpc_torch.data.pipeline import CaptionDataset
     from svpc_torch.model import SVPCModel
@@ -302,35 +370,189 @@ def job_decode(spec, mesh, device) -> None:
     model = model.shard(mesh).to(device).eval()
     ds = CaptionDataset(cfg, spec.get("split", "val"), lazy_features=True)
     decoder = make_eval_decoder(model, cfg, ds)
-    forms, heads = {}, {}
-    real = layers.fused_attention
-
-    def recording(q, k, v, mask, nh):
-        key = (q.shape[0], q.shape[1], k.shape[1], tuple(mask.shape[1:]))
-        heads[nh] = heads.get(nh, 0) + 1
-        if key not in forms:
-            forms[key] = {"inputs": [t.detach().cpu() for t in (q, k, v,
-                                                                  mask)],
-                          "num_heads": nh, "calls": 0}
-        forms[key]["calls"] += 1
-        return real(q, k, v, mask, nh)
-
-    layers.fused_attention = recording
-    try:
+    with FormRecorder(keep=True) as rec:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         reset_launches()
         tokens, _ = next(_decode_batches(ds, decoder, max_batches=1))
         launches = dict(LAUNCHES)
-    finally:
-        layers.fused_attention = real
+    heads = rec.heads
     if mesh.is_main:
-        torch.save({"tokens": tokens.cpu(),
-                    "forms": [dict(v, key=list(k)) for k, v in
-                              forms.items()]},
+        torch.save({"tokens": tokens.cpu(), "forms": rec.form_list()},
                    os.path.join(spec["out"], "result.pt"))
-    _rank_file(spec, mesh, {"launches": launches,
-                            "heads": {str(k): v for k, v in heads.items()}})
+    _rank_file(spec, mesh, {"launches": launches, "heads": heads})
+
+
+class FormRecorder:
+    """While entered, counts the attention calls of ``model/layers.py``
+    by head count and, with ``keep``, by form (sequences, query and key
+    lengths, mask shape), keeping each form's first inputs on the CPU."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.heads: Dict[str, int] = {}
+        self.forms: dict = {}
+
+    def reset(self) -> None:
+        self.heads.clear()
+        self.forms.clear()
+
+    def __enter__(self):
+        import svpc_torch.model.layers as layers
+        self.real = layers.fused_attention
+
+        def recording(q, k, v, mask, nh):
+            self.heads[str(nh)] = self.heads.get(str(nh), 0) + 1
+            if self.keep:
+                key = (q.shape[0], q.shape[1], k.shape[1],
+                       tuple(mask.shape[1:]))
+                if key not in self.forms:
+                    self.forms[key] = {
+                        "inputs": [t.detach().cpu() for t in (q, k, v, mask)],
+                        "num_heads": nh, "calls": 0}
+                self.forms[key]["calls"] += 1
+            return self.real(q, k, v, mask, nh)
+
+        layers.fused_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        import svpc_torch.model.layers as layers
+        layers.fused_attention = self.real
+
+    def form_list(self) -> list:
+        return [dict(v, key=list(k)) for k, v in self.forms.items()]
+
+
+def job_serve(spec, mesh, device) -> None:
+    from svpc_torch.config import Config
+    from svpc_torch.model import SVPCModel
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+    from svpc_torch.serving import CaptionService
+    from svpc_torch.train.state import load_eval_weights
+
+    ckpt = spec["checkpoint"]
+    cfg = Config.from_json(ckpt + ".cfg.json")
+    weights = load_eval_weights(ckpt)
+    results = []
+    reset_launches()
+    with FormRecorder() as counter:
+        for beam_size, n_best in spec["decoders"]:
+            model = SVPCModel(cfg.model)
+            model.load_state_dict(weights, strict=True)
+            service = CaptionService(
+                cfg, model, batch_videos=spec["batch_videos"],
+                max_clips=spec.get("max_clips"), beam_size=beam_size,
+                n_best=n_best, mesh=mesh, device=device, warmup=False)
+            if not mesh.is_main:
+                service.follow()
+                continue
+            try:
+                results.append(service.caption(spec["specs"]))
+            finally:
+                service.close()
+    if mesh.is_main:
+        with open(os.path.join(spec["out"], "result.json"), "w") as f:
+            json.dump(results, f)
+    _rank_file(spec, mesh, {"launches": dict(LAUNCHES),
+                            "heads": counter.heads})
+
+
+def job_cli_serve(spec, mesh, device) -> None:
+    """``svpc_torch.cli.serve.main(spec["argv"])`` on this rank, its
+    attention calls counted (with ``record_forms``, recorded by form) from
+    the end of the service's warm-up; with ``fail_rank``, that rank's
+    fill of every announced batch raises."""
+    from svpc_torch.cli import serve
+    from svpc_torch.ops.attention import LAUNCHES, reset_launches
+    from svpc_torch.serving import CaptionService
+
+    rank = int(os.environ.get("RANK", 0))
+    real = CaptionService.warmup, CaptionService._examples_from
+    with FormRecorder(keep=spec.get("record_forms", False)) as rec:
+        def warmup(service):
+            real[0](service)
+            reset_launches()
+            rec.reset()
+
+        def examples_from(service, entries):
+            raise RuntimeError(f"rank {rank}: injected fill failure")
+
+        CaptionService.warmup = warmup
+        if spec.get("fail_rank") == rank:
+            CaptionService._examples_from = examples_from
+        try:
+            serve.main(spec["argv"])
+        finally:
+            CaptionService.warmup, CaptionService._examples_from = real
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": dict(LAUNCHES), "heads": rec.heads}, f)
+    if rec.keep:
+        torch.save(rec.form_list(),
+                   os.path.join(spec["out"], f"forms_rank{rank}.pt"))
+
+
+def job_gpipe(spec, mesh, device) -> None:
+    from svpc_torch.config import Config
+    from svpc_torch.model.layers import (Decoder, Encoder, StageLayers,
+                                         _Pipelined)
+    from svpc_torch.model.svpc import init_parameters
+    from svpc_torch.parallel.mesh import GlobalDraws, stage_layers
+
+    base = Config.from_dict(spec["cfg"]).model
+    gen = torch.Generator().manual_seed(spec["seed"])
+    n, lq, lk, h = 8, 6, 3, base.hidden_size
+    rows = []
+    for depth in spec["layers"]:
+        for remat in (False, True):
+            cfg = base.__class__(**{**base.__dict__, "num_hidden_layers":
+                                    depth, "remat": remat})
+            for kind in ("encoder", "decoder"):
+                whole = (Encoder if kind == "encoder" else Decoder)(cfg)
+                init_parameters(whole, 0.05, gen)
+                x = torch.randn(n, lq, h, generator=gen)
+                mask = (torch.rand(n, lq, generator=gen) > 0.2).float()
+                mask[:, 0] = 1.0
+                enc = torch.randn(n, lk, h, generator=gen)
+                weight = torch.randn(n, lq, h, generator=gen)
+                staged = copy.deepcopy(whole)
+                staged.layer = StageLayers(staged.layer,
+                                           stage_layers(depth, mesh))
+                staged.pipelined = _Pipelined(mesh, 0)
+                finite = []
+                for layer in staged.layer:
+                    layer.register_forward_hook(
+                        lambda m, i, o: finite.append(
+                            bool(torch.isfinite(o).all())))
+                out = {}
+                for name, trunk in (("sequential", whole),
+                                    ("pipelined", staged)):
+                    xi = x.clone().requires_grad_(True)
+                    ei = enc.clone().requires_grad_(True)
+                    g = GlobalDraws(torch.Generator().manual_seed(
+                        spec["seed"] + depth), mesh)
+                    if kind == "encoder":
+                        y = trunk(xi, mask, False, False, g)
+                    else:
+                        y = trunk(xi, mask, ei, torch.ones(n, lk), False, g)
+                    (y * weight).sum().backward()
+                    out[name] = {"y": y.detach(), "x": xi.grad,
+                                 "enc": ei.grad,
+                                 **{k: p.grad for k, p in
+                                    trunk.named_parameters()}}
+                pip, seq = out["pipelined"], out["sequential"]
+                # max(|diff| - 1e-5 - 1e-5 |sequential|): <= 0 when every
+                # element is within rtol = atol = 1e-5
+                err = {k: float(((v - seq[k]).abs() - 1e-5
+                                 - 1e-5 * seq[k].abs()).max())
+                       for k, v in pip.items() if v is not None}
+                rows.append({"layers": depth, "remat": remat, "trunk": kind,
+                             "tol_excess": max(err.values()),
+                             "worst": max(err, key=err.get),
+                             "grads": len(err) - 1,
+                             "finite": all(finite),
+                             "layer_calls": len(finite)})
+    _rank_file(spec, mesh, {"cases": rows})
 
 
 def job_nccl(spec, mesh, device) -> None:
@@ -378,6 +600,7 @@ def job_nccl(spec, mesh, device) -> None:
 
 
 JOBS = {"steps": job_steps, "train": job_train, "decode": job_decode,
+        "serve": job_serve, "cli_serve": job_cli_serve, "gpipe": job_gpipe,
         "nccl": job_nccl}
 
 
@@ -395,9 +618,10 @@ def main(argv=None) -> None:
     device = rank_device(spec.get("device"))
     init_distributed(spec.get("backend"), device,
                      timeout_s=spec.get("timeout_s", 120))
-    # the trainer makes its own mesh from its config
-    mesh = (None if job == "train"
-            else make_mesh(spec.get("dp", 1), spec.get("tp", 1)))
+    # the trainer and the serving CLI make their own mesh from their flags
+    mesh = (None if job in ("train", "cli_serve")
+            else make_mesh(spec.get("dp", 1), spec.get("tp", 1),
+                           spec.get("pp", 1)))
     try:
         JOBS[job](copy.deepcopy(spec), mesh, device)
     finally:

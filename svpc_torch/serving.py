@@ -12,8 +12,21 @@ to ``batch_videos`` videos or ``max_wait_ms``).  Host work (tokenization,
 feature fill) runs in the submitting thread; the one batcher thread only
 assembles batches and runs the model.
 
-Multi-card ``mesh`` serving is a later slice and raises
-``NotImplementedError`` here.
+On a dp x tp ``mesh`` (parallel/mesh.py, one process a rank, as
+svpc_tpu's ``CaptionService(mesh=...)`` is one process over many devices)
+every rank holds its tp shards of the model and decodes its dp block of
+each batch; the tokens are gathered to every rank.  Rank 0 runs the HTTP
+front and the ``DynamicBatcher``; for each batch it broadcasts the
+examples' entries (the request specs, not the features) and every rank
+builds its own block of the batch with the native packer.  The other
+ranks ``follow()`` those messages until rank 0's ``close()`` sends them
+the end (and, while idle, a heartbeat, so an idle follower never reaches
+the process group's timeout).  Uploaded features are written by rank 0
+into the spool and read from disk by every rank.  A failure once rank 0
+has announced a batch (a follower's fill, a collective, the decode)
+leaves the ranks out of step: a follower raises out of ``follow()``, and
+rank 0 fails that batch and sets ``broken``, after which the service
+takes no batch and cli/serve.py shuts down with a non-zero exit.
 The HTTP front-end lives in cli/serve.py.
 """
 
@@ -41,6 +54,8 @@ from svpc_torch.decode.beam import beam_decode
 from svpc_torch.decode.greedy import greedy_decode
 from svpc_torch.decode.postprocess import batch_to_sentences, nbest_entries
 from svpc_torch.model.svpc import to_tensors
+from svpc_torch.parallel.collectives import gather_dim
+from svpc_torch.parallel.mesh import rank_device, shard_batch
 from svpc_torch.precision import check_compute_dtype, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -60,9 +75,8 @@ class DecodeTimeout(TimeoutError):
     by the submitter; maps to HTTP 503)."""
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to svpc_torch (ROADMAP.md, Queue 1)")
+# seconds between rank 0's messages to idle followers on a mesh
+HEARTBEAT_S = 20.0
 
 
 def dummy_example(cfg: Config, num_steps: int,
@@ -106,9 +120,11 @@ def dummy_example(cfg: Config, num_steps: int,
 class CaptionService:
     """Decode captions for user video specs at one fixed geometry.
 
-    ``model`` is an SVPCModel holding the eval weights; the service moves
-    it to ``device`` (the card unless ``device="cpu"``).  The service owns
-    a CaptionDataset shell (vocab, duration CSV, feature store)."""
+    ``model`` is an SVPCModel holding the (whole) eval weights; the
+    service cuts it to ``mesh``'s tp shards when given one and moves it to
+    ``device`` (the card unless ``device="cpu"``; on a mesh each rank's,
+    ``parallel.mesh.rank_device``).  The service owns a CaptionDataset
+    shell (vocab, duration CSV, feature store)."""
 
     def __init__(self, cfg: Config, model,
                  batch_videos: int = 8,
@@ -130,17 +146,28 @@ class CaptionService:
         if n_best > max(beam_size, 1):
             raise ValueError(
                 f"n_best={n_best} cannot exceed beam_size={beam_size}")
-        if mesh is not None:
-            raise _not_ported("multi-card (mesh) serving")
         if batch_videos < 1:
             raise ValueError(f"batch_videos must be >= 1, got {batch_videos}")
+        # multi-card serving: request batches shard over dp, the model
+        # over the tp rules (the layout cli.evaluate's mesh uses)
+        self.mesh = mesh
+        dp = mesh.dp_size if mesh is not None else 1
+        if batch_videos % dp:
+            raise ValueError(
+                f"batch_videos={batch_videos} must be a multiple of the "
+                f"dp mesh axis ({dp})")
+        self._dp = dp
         # the features go to the card in the compute dtype (svpc_tpu/
         # serving.py:208, ``cast_transform``)
         self.feature_dtype = check_compute_dtype(cfg.model)
         max_clips = max_clips or cfg.model.max_n_sen
         cfg = cfg.replace_train(val_batch_size=batch_videos)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = rank_device(device)
+            model = model.shard(mesh)
+        else:
+            self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_videos = batch_videos
         self.beam_size = beam_size if beam_size and beam_size > 1 else 0
@@ -167,11 +194,11 @@ class CaptionService:
                 lazy_features=True, feature_store=FeatureStore(upload_dir))
             self.up_ds.frame_to_second = {}  # rows arrive per upload
 
-        # packed clip budgets: the worst case (every slot a full video) is
-        # always covered; smaller ``clip_buckets`` let light batches (a
-        # lone request) ride a smaller shape
+        # packed clip budgets (per dp shard): the worst case (every slot
+        # a full video) is always covered; smaller ``clip_buckets`` let
+        # light batches (a lone request) ride a smaller shape
         mult = cfg.train.pack_clip_multiple
-        budget = _round_up(batch_videos * max_clips, mult)
+        budget = _round_up((batch_videos // dp) * max_clips, mult)
         dropped = [int(b) for b in (clip_buckets or [])
                    if not 0 < int(b) < budget]
         if dropped:
@@ -183,10 +210,19 @@ class CaptionService:
                                 if 0 < int(b) < budget} | {budget})
         self._packed = cfg.train.pack_clips
         # one model on one device; the lock keeps direct multi-threaded
-        # callers of decode_payloads / caption safe
+        # callers of decode_payloads / caption safe (and, on a mesh, rank
+        # 0's broadcasts in the order of its decodes)
         self._lock = threading.Lock()
+        self._last_message = time.monotonic()
+        self._heartbeat: Optional[threading.Thread] = None
+        self._closed = threading.Event()
+        self.broken = threading.Event()  # set when the mesh fell out of step
         if warmup:
             self.warmup()
+        if mesh is not None and mesh.is_main:
+            self._heartbeat = threading.Thread(
+                target=self._beat, name="svpc-heartbeat", daemon=True)
+            self._heartbeat.start()
 
     @property
     def max_clips(self) -> int:
@@ -200,17 +236,23 @@ class CaptionService:
             return pad_batch_to(batch_examples(examples), self.batch_videos)
         if not n_clips:
             steps = [int(e.arrays["step_mask"].sum()) for e in examples]
-            shard_max = max(shard_clip_counts(steps, self.batch_videos, 1))
+            shard_max = max(shard_clip_counts(steps, self.batch_videos,
+                                              self._dp))
             n_clips = next(b for b in self._buckets if shard_max <= b)
         t = self.cfg.train
+        # on a mesh each rank fills only its own dp block's features
         return pack_examples(
             examples, self.cfg.model.max_t_len, batch_size=self.batch_videos,
             n_clips=n_clips, v_len=self.cfg.model.max_v_len,
-            clip_multiple=t.pack_clip_multiple, v_multiple=t.pack_v_multiple)
+            clip_multiple=t.pack_clip_multiple, v_multiple=t.pack_v_multiple,
+            dp_shards=self._dp,
+            only_shards=(None if self.mesh is None
+                         else {self.mesh.dp_index}))
 
     def warmup(self) -> None:
         """Run the decoder once per clip bucket on a zero batch, so the
-        first real request pays no kernel build or allocator growth."""
+        first real request pays no kernel build or allocator growth (on a
+        mesh every rank warms up alike, as it builds the service)."""
         t0 = time.perf_counter()
         ex = dummy_example(self.cfg, self.max_clips,
                            self.ds.action_vocab_size)
@@ -375,11 +417,17 @@ class CaptionService:
                 f"{video_id}: no duration row in "
                 f"{self.cfg.data.duration_file}")
         entry["source"] = "upload" if owner is self.up_ds else "disk"
+        if owner is self.up_ds:
+            # the followers of a mesh read the spool with this row
+            entry["frm2sec"] = self.up_ds.frame_to_second[
+                self.up_ds.video_name(video_id)]
         return entry
 
     def example_for(self, entry: dict) -> Example:
         ds = self.up_ds if entry.get("source") == "upload" else self.ds
-        return ds.make_example(entry)
+        ex = ds.make_example(entry)
+        ex.meta["entry"] = entry
+        return ex
 
     # ---------------------------------------------------------------- #
     # device batch decode
@@ -393,27 +441,114 @@ class CaptionService:
     def _decode_batch(self, batch):
         """Decode one numpy batch -> host arrays: one (B, S, T) token grid,
         or the ``(tokens (B, n, S, T), scores (B, n, S))`` pair under
-        n_best > 1."""
-        with self._lock:
-            b = to_tensors(batch, self.device, self.feature_dtype)
-            if not self.beam_size:
-                return greedy_decode(self.model, b).cpu().numpy()
+        n_best > 1.  On a mesh every rank calls it on the same batch (its
+        own dp block filled): it decodes that block and gathers every
+        block's outputs."""
+        if self.mesh is not None:
+            batch = shard_batch(self.mesh, batch)
+        b = to_tensors(batch, self.device, self.feature_dtype)
+        if not self.beam_size:
+            out = greedy_decode(self.model, b)
+        else:
             out = beam_decode(self.model, b, beam_size=self.beam_size,
                               n_best=self.n_best)
-            if self.n_best == 1:
-                return out.cpu().numpy()
-            return tuple(x.cpu().numpy() for x in out)
+        outs = out if isinstance(out, tuple) else (out,)
+        if self.mesh is not None:  # every dp block's rows, in batch order
+            outs = tuple(gather_dim(t, 0, self.mesh.dp_group) for t in outs)
+        outs = tuple(t.cpu().numpy() for t in outs)
+        return outs if isinstance(out, tuple) else outs[0]
+
+    # ---------------------------------------------------------------- #
+    # mesh: rank 0 leads, the other ranks follow
+    # ---------------------------------------------------------------- #
+
+    def _announce(self, message) -> None:
+        """Rank 0's message to every rank (under ``self._lock``)."""
+        import torch.distributed as dist
+        dist.broadcast_object_list([message], src=0)
+        self._last_message = time.monotonic()
+
+    def _beat(self) -> None:
+        """Rank 0: a heartbeat to the followers while no batch is sent."""
+        while not self._closed.wait(HEARTBEAT_S / 4):
+            with self._lock:
+                if self._closed.is_set() or self.broken.is_set():
+                    return
+                if time.monotonic() - self._last_message >= HEARTBEAT_S:
+                    try:
+                        self._announce("heartbeat")
+                    except Exception as e:
+                        self._mesh_failed(e)
+                        return
+
+    def _mesh_failed(self, error: Exception) -> None:
+        """Rank 0: a message or a batch's collectives failed, so the
+        ranks are out of step for good; no further batch is taken."""
+        logger.error("the mesh failed (%r); the service takes no further "
+                     "batch", error)
+        self.broken.set()
+
+    def _examples_from(self, entries) -> List[Example]:
+        """A follower's examples of rank 0's entries (an uploaded video's
+        frm2sec row comes with its entry; its files are on the spool)."""
+        for e in entries:
+            if e.get("source") == "upload":
+                vn = self.up_ds.video_name(e["name"])
+                self.up_ds.store.invalidate()
+                self.up_ds.frame_to_second[vn] = e["frm2sec"]
+        return [self.example_for(e) for e in entries]
+
+    def follow(self) -> None:
+        """A rank other than 0 on a mesh: decode each batch rank 0
+        announces, with it, until ``close()`` ends the service.  Any
+        failure (its block's fill included) propagates: the process exits,
+        and rank 0's pending collective raises."""
+        import torch.distributed as dist
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0)
+            if box[0] is None:
+                return
+            if box[0] == "heartbeat":
+                continue
+            self._decode_batch(self.build_batch(
+                self._examples_from(box[0])))
+
+    def close(self) -> None:
+        """Rank 0 on a mesh: end the followers' ``follow()``."""
+        if self.mesh is None or not self.mesh.is_main or \
+                self._closed.is_set():
+            return
+        with self._lock:
+            self._closed.set()
+            if not self.broken.is_set():
+                self._announce(None)
 
     def decode_payloads(self, examples: Sequence[Example]
                         ) -> List[List[dict]]:
         """Decode up to ``batch_videos`` examples -> per-example per-clip
         payload dicts: ``{"sentence": str}``, plus ``"nbest":
         [{"sentence", "score"}, ...]`` ranked best-first under n_best > 1,
-        as the offline ``run_nbest_eval`` (train/loop.py) builds them."""
+        as the offline ``run_nbest_eval`` (train/loop.py) builds them.  On
+        a mesh rank 0 calls it and the other ranks decode alongside
+        (``follow``)."""
         if len(examples) > self.batch_videos:
             raise ValueError(
                 f"{len(examples)} examples > batch_videos={self.batch_videos}")
-        out = self._decode_batch(self.build_batch(examples))
+        batch = self.build_batch(examples)
+        with self._lock:
+            if self.mesh is None:
+                out = self._decode_batch(batch)
+            else:
+                if self._closed.is_set() or self.broken.is_set():
+                    raise RuntimeError("the mesh service is closed or "
+                                       "broken")
+                try:
+                    self._announce([e.meta["entry"] for e in examples])
+                    out = self._decode_batch(batch)
+                except Exception as e:
+                    self._mesh_failed(e)
+                    raise
         metas = [e.meta for e in examples]
         if self.n_best > 1:
             sentences, nbest = nbest_entries(*out, metas, self.ds.vocab)

@@ -16,15 +16,19 @@ by ``multi_train_step``.  ``tensorboard`` writes svpc_tpu's scalars
 (``TBWriter``), ``profile_steps`` traces that many steady-state host
 batches with ``torch.profiler`` into ``<workdir>/profile/``.
 
-With ``dp_size * tp_size > 1`` (one process a rank, started by torchrun)
-the loop trains on the dp x tp mesh of parallel/mesh.py: every rank builds
-the global batch and keeps its dp block (with ``multihost_sharded_data``
-it builds only its block), the model holds its tp shards, ``zero1``
-slices the moments and shadow over dp, and only rank 0 writes logs,
-predictions and checkpoints (layout-free: they resume on any mesh).  The
-eval batch is rounded up to a multiple of dp; each rank decodes its
-block and the tokens are gathered, so every rank scores the same
-submission.  Pipeline parallelism (``pp_size > 1``) raises.
+With ``dp_size * pp_size * tp_size > 1`` (one process a rank, started by
+torchrun) the loop trains on the dp x pp x tp mesh of parallel/mesh.py:
+every rank builds the global batch and keeps its dp block (with
+``multihost_sharded_data`` it builds only its block), the model holds its
+pipeline stage's trunk layers (run on the GPipe schedule of
+parallel/pipeline.py, ``pp_microbatches`` a call) and its tp shards,
+``zero1`` slices the moments and shadow over dp, and only rank 0 writes
+logs, predictions and checkpoints (layout-free: they resume on any mesh).
+The eval batch is rounded up to a multiple of dp; validation's
+teacher-forced eval step pipelines as training does, while its greedy
+decode runs a sequential model on the trunk gathered whole over pp (as
+svpc_tpu decodes on unstacked parameters); each rank decodes its dp block
+and the tokens are gathered, so every rank scores the same submission.
 
 On the card the train step's attention runs the differentiable plain
 version; the hand-written attention kernel runs in validation (the
@@ -63,9 +67,10 @@ from svpc_torch.evaluation import evaluate_submission
 from svpc_torch.model import SVPCModel
 from svpc_torch.model.svpc import to_tensors
 from svpc_torch.parallel.collectives import gather_dim
-from svpc_torch.parallel.mesh import (init_distributed, local_dp_shards,
+from svpc_torch.parallel.mesh import (check_stages, gather_stages,
+                                      init_distributed, local_dp_shards,
                                       make_mesh, rank_device, shard_batch,
-                                      zero1_dims)
+                                      without_pp, zero1_dims)
 from svpc_torch.precision import resolve_device
 from svpc_torch.train.optim import GLOVE_TABLES, make_optimizer
 from svpc_torch.train.state import TrainState, load_checkpoint, \
@@ -77,28 +82,16 @@ from svpc_torch.train.step import (aggregate_metrics, apply_step, eval_step,
 logger = logging.getLogger(__name__)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to svpc_torch (ROADMAP.md, Queue 1)")
-
-
-def check_supported(cfg: Config) -> None:
-    """Raise for the svpc_tpu training options a config may carry that the
-    port does not have: pipeline parallelism."""
-    if cfg.train.pp_size > 1:
-        raise _not_ported("pipeline parallelism (--pp_size > 1)")
-
-
 def mesh_for(cfg: Config, device=None):
-    """The dp x tp mesh ``cfg.train`` asks for (None for one process),
-    joining the process group torchrun set up; more processes than the
-    mesh has raise."""
+    """The dp x pp x tp mesh ``cfg.train`` asks for (None for one
+    process), joining the process group torchrun set up; more processes
+    than the mesh has raise."""
     t = cfg.train
-    if t.dp_size * t.tp_size == 1 and \
+    if t.dp_size * t.tp_size * t.pp_size == 1 and \
             int(os.environ.get("WORLD_SIZE", 1)) == 1:
         return None
     init_distributed(device=device)
-    return make_mesh(t.dp_size, t.tp_size)
+    return make_mesh(t.dp_size, t.tp_size, t.pp_size)
 
 
 def load_glove_into(model: SVPCModel, glove_path: str, verb_glove_path: str
@@ -430,10 +423,10 @@ def train(cfg: Config, workdir: str,
     svpc_tpu's scalars under ``workdir`` when the package is there;
     ``profile_steps`` > 0 traces that many host batches (``StepProfiler``).
 
-    With ``cfg.train.dp_size * tp_size > 1`` every rank calls it (under
-    torchrun, or after ``init_distributed``); ``device`` is then each
-    rank's (``parallel.mesh.rank_device``)."""
-    check_supported(cfg)
+    With ``cfg.train.dp_size * pp_size * tp_size > 1`` every rank calls it
+    (under torchrun, or after ``init_distributed``); ``device`` is then
+    each rank's (``parallel.mesh.rank_device``)."""
+    check_stages(cfg.model.num_hidden_layers, cfg.train.pp_size)
     mesh = mesh_for(cfg, device)
     device = (resolve_device(device) if mesh is None
               else rank_device(device))
@@ -456,7 +449,8 @@ def train(cfg: Config, workdir: str,
     model = SVPCModel(cfg.model, torch.Generator().manual_seed(
         cfg.train.seed))
     load_glove_into(model, cfg.data.glove_path, cfg.data.verb_glove_path)
-    model = model.shard(mesh).to(device)
+    pp_micro = cfg.train.pp_microbatches
+    model = model.shard(mesh, pp_microbatches=pp_micro).to(device)
     params = dict(model.named_parameters())
     n_all = sum(math.prod(s) for s in model.full_shapes.values())
     n_frozen = (sum(math.prod(model.full_shapes[n]) for n in GLOVE_TABLES
@@ -498,10 +492,17 @@ def train(cfg: Config, workdir: str,
     val_builder = (eval_packing_builder(cfg, val_ds,
                                         cfg.train.val_batch_size, dp)
                    if len(val_ds) else None)
-    eval_model = SVPCModel(cfg.model).shard(mesh).to(device).eval()
-    # one decoder (packed shape, batch size) for every epoch's greedy eval
-    eval_decoder = (make_eval_decoder(eval_model, cfg, val_ds)
-                    if eval_language and len(val_ds) else None)
+    eval_model = SVPCModel(cfg.model).shard(
+        mesh, pp_microbatches=pp_micro).to(device).eval()
+    # one decoder (packed shape, batch size) for every epoch's greedy eval;
+    # the KV-cached decode is sequential: under pp it runs a model holding
+    # the whole trunk (gathered over pp), as svpc_tpu's decode_model
+    decode_model, eval_decoder = eval_model, None
+    if eval_language and len(val_ds):
+        if mesh is not None and mesh.pp_size > 1:
+            decode_model = SVPCModel(cfg.model).shard(
+                without_pp(mesh)).to(device).eval()
+        eval_decoder = make_eval_decoder(decode_model, cfg, val_ds)
 
     best_cider = 0.0
     best_score = 0.0 if eval_language else None  # a CIDEr of 0 never wins
@@ -580,7 +581,11 @@ def train(cfg: Config, workdir: str,
             # teacher-forced validation, then the greedy decode and its
             # language metrics, on the EMA weights (the attention kernel's
             # path on the card)
-            eval_model.load_state_dict(state.eval_params(), strict=True)
+            eval_params = state.eval_params()
+            eval_model.load_state_dict(eval_params, strict=True)
+            if decode_model is not eval_model:
+                decode_model.load_state_dict(gather_stages(eval_params, mesh),
+                                             strict=True)
             vmetrics = []
             for j, (batch, _) in enumerate(val_ds.batches(
                     cfg.train.val_batch_size, builder=val_builder)):
@@ -595,7 +600,7 @@ def train(cfg: Config, workdir: str,
             val_m = aggregate_metrics(vmetrics)
             lang = {}
             if eval_decoder is not None:
-                submission = run_greedy_eval(eval_model, val_ds, cfg,
+                submission = run_greedy_eval(decode_model, val_ds, cfg,
                                              max_batches=max_steps_per_epoch,
                                              decoder=eval_decoder)
                 if main:

@@ -22,9 +22,14 @@ and the gradients are whole over dp (the step all-reduces them): both
 clips read each tensor's full norm, its local norm's square summed over
 tp where it is tp-split.  With ZeRO-1 each rank keeps the moments (and
 the EMA shadow) of its dp slice of each tensor only, updates that slice
-and all-gathers the updated slices over dp.  ``state_dict`` gathers the
-moments whole and ``load_state_dict`` slices them, so a checkpoint holds
-no layout.
+and all-gathers the updated slices over dp.  On a pp mesh a rank holds
+its stage's trunk layers only, with their moments and shadow: the
+per-parameter clip reads each tensor's own norm, and the global clip's
+total gathers every stage's trunk norms over pp and sums the squares in
+the whole model's order (a replicated tensor counted once).
+``state_dict`` gathers the moments whole (over dp, tp and pp) and
+``load_state_dict`` keeps this rank's slices, so a checkpoint holds no
+layout.
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ import torch
 import torch.distributed as dist
 
 from svpc_torch.config import TrainConfig
-from svpc_torch.parallel.collectives import gather_dim
-from svpc_torch.parallel.mesh import dp_slice, tp_slice
+from svpc_torch.parallel.collectives import all_gather_list, gather_dim
+from svpc_torch.parallel.mesh import (dp_slice, gather_stages, tp_slice,
+                                      trunk_layer)
 
 # the GloVe-initialized tables (word / ingredient / verb embeddings);
 # ``freeze_glove`` keeps them fixed, the reference's
@@ -146,8 +152,13 @@ class BertAdam:
         self.tp_split = {n: d for n, d in (tp_split or {}).items()
                          if d is not None and mesh is not None
                          and mesh.tp_size > 1}
+        # this rank's tensors only (a pp stage holds some trunk layers)
         self.zero1_split = {n: d for n, d in (zero1_split or {}).items()
-                            if d is not None and mesh is not None}
+                            if d is not None and mesh is not None
+                            and n in params}
+        # the stage-resident trunk tensors on a pp mesh
+        self.staged = ([n for n in params if trunk_layer(n) is not None]
+                       if mesh is not None and mesh.pp_size > 1 else [])
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
@@ -191,6 +202,32 @@ class BertAdam:
             for i, s in zip(split, sq.sqrt().unbind()):
                 norms[i] = s
         return norms
+
+    def total_norm(self, norms: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grad_norms``: on a pp mesh every stage's
+        trunk norms are gathered over pp and the squares summed in the
+        whole model's order (each trunk's layers stage by stage), so it
+        is the pp=1 total."""
+        if not self.staged:
+            return total_norm(norms)
+        names = list(self.params)
+        at = {n: i for i, n in enumerate(names)}
+        parts = all_gather_list(torch.stack([norms[at[n]]
+                                             for n in self.staged]),
+                                self.mesh.pp_group)
+        whole, done = [], set()
+        for i, n in enumerate(names):
+            hit = trunk_layer(n)
+            if hit is None:
+                whole.append(norms[i])
+            elif hit[0] not in done:
+                done.add(hit[0])
+                pos = [j for j, m in enumerate(self.staged)
+                       if trunk_layer(m)[0] == hit[0]]
+                for part in parts:
+                    whole.extend(part[pos].unbind())
+        return total_norm(whole)
+
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor],
                norms: Optional[List[torch.Tensor]] = None) -> None:
@@ -204,7 +241,7 @@ class BertAdam:
             if norms is None:
                 norms = self.grad_norms(gs)
             gs = torch._foreach_mul(
-                gs, clip_scale(total_norm(norms), self.global_clip))
+                gs, clip_scale(self.total_norm(norms), self.global_clip))
             # the per-parameter clip reads the clipped gradients' own norms,
             # as the reference does: norms * scale rounds differently, and
             # that moves bfloat16 moments by a unit
@@ -253,11 +290,18 @@ class BertAdam:
     def state_dict(self) -> dict:
         """Step and moments, the moments whole (every rank calls it)."""
         return {"step": self.step,
-                "m": {n: self.whole(n, t) for n, t in self.m.items()},
-                "v": {n: self.whole(n, t) for n, t in self.v.items()}}
+                "m": self.whole_all(self.m), "v": self.whole_all(self.v)}
+
+    def whole_all(self, tensors: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Moment- or shadow-shaped slices gathered whole: each over dp
+        and tp (``whole``), then every stage's over pp."""
+        return gather_stages({n: self.whole(n, t) for n, t in
+                              tensors.items()}, self.mesh)
 
     def load_state_dict(self, state: dict) -> None:
-        """From whole moments (a checkpoint of any layout)."""
+        """From whole moments (a checkpoint of any layout): this rank's
+        stage and slices."""
         self.step = int(state["step"])
         for key in ("m", "v"):
             for n, t in getattr(self, key).items():

@@ -7,9 +7,10 @@ weights only, train.py:401-405).  A ``<name>.cfg.json`` sidecar carries the
 config.
 
 On a mesh every tensor of a checkpoint is whole: ``state_dict`` gathers
-the parameters over tp and the moments and shadow over dp (ZeRO-1) and tp
-on every rank, rank 0 writes it, and ``load_state_dict`` keeps this
-rank's slices, so a checkpoint of one layout resumes on another.
+the parameters over tp and pp and the moments and shadow over dp
+(ZeRO-1), tp and pp on every rank, rank 0 writes it, and
+``load_state_dict`` keeps this rank's stage and slices, so a checkpoint
+of one layout resumes on another (pp2 <-> pp1 included).
 """
 
 from __future__ import annotations
@@ -75,8 +76,7 @@ class TrainState:
         """Everything whole (every rank of a mesh calls it)."""
         shadow = self.ema_shadow
         if shadow is not None:
-            shadow = {n: self.optimizer.whole(n, s)
-                      for n, s in shadow.items()}
+            shadow = self.optimizer.whole_all(shadow)
         return {"model": self.model.full_state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "ema_shadow": shadow,

@@ -22,7 +22,12 @@ On a mesh (``state.mesh``, parallel/mesh.py) each rank runs its dp block
 of the batch: the metrics are summed over dp, the gradients are
 all-reduced over dp once per optimizer step (after any accumulation),
 and every draw is over the global shape (``step_generator(mesh=...)``),
-so the trajectory is the one-process run's on the global batch.
+so the trajectory is the one-process run's on the global batch.  On a pp
+mesh every stage runs the same step on its dp block (the trunks
+pipelined, model/layers.py): the dp all-reduce and the metric sums stay
+on the dp group, the metrics come out alike on every stage and are not
+summed over pp, and the gradient norm is the whole model's
+(``BertAdam.total_norm``).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch.distributed as dist
 from svpc_torch import tokenization as tok
 from svpc_torch.config import Config
 from svpc_torch.parallel.mesh import GlobalDraws
-from svpc_torch.train.optim import ema_update, total_norm
+from svpc_torch.train.optim import ema_update
 from svpc_torch.train.state import TrainState
 
 
@@ -130,9 +135,10 @@ def apply_step(state: TrainState, cfg: Config,
     grads = sum_grads_over_dp(
         {n: (p.grad if p.grad is not None else torch.zeros_like(p))
          for n, p in state.params.items()}, state.mesh)
-    # the optimizer's order; tp-split tensors' norms summed over tp
+    # the optimizer's order; tp-split tensors' norms summed over tp, the
+    # total over every pp stage's
     norms = state.optimizer.grad_norms(list(grads.values()))
-    grad_norm = total_norm(norms)
+    grad_norm = state.optimizer.total_norm(norms)
     metrics = {"grad_norm": grad_norm}
     ok = True
     if cfg.train.skip_nonfinite_updates:

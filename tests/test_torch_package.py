@@ -66,6 +66,7 @@ def test_every_port_module_imports_without_them():
                  "svpc_torch.cli.build_pos_vocab",
                  "svpc_torch.parallel", "svpc_torch.parallel.mesh",
                  "svpc_torch.parallel.collectives",
+                 "svpc_torch.parallel.pipeline",
                  "svpc_torch.parallel.worker"):
         assert name in names, name
     code = ("import importlib, sys\n"

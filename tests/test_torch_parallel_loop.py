@@ -3,8 +3,8 @@ as torchrun starts them: svpc_torch.parallel.worker.run_ranks): ``cli.
 train --dp_size 2 --zero1 --multihost_sharded_data`` gives the one-rank
 history and its checkpoint resumes on one rank (and the other way
 round); ``cli.evaluate --dp_size 2 --tp_size 2`` gives the one-rank
-captions; ``--pp_size 2`` is refused.  Tiny geometry on a training
-fixture (8 train videos, batch 2; 4 val videos).
+captions; ``--pp_size 2`` on a 3-layer trunk is refused.  Tiny
+geometry on a training fixture (8 train videos, batch 2; 4 val videos).
 
 The trainer packs each dp block on its own, so a dp run's clip rows are
 not a one-rank run's: the training runs turn the clip-level dropout off
@@ -145,12 +145,13 @@ def test_evaluate_dp2_tp2_gives_one_rank_captions(tmp_path):
         assert len(mesh["results"]) == 4
 
 
-def test_train_refuses_pp(capsys):
-    """--pp_size 2 exits with a usage error naming what is not ported."""
+def test_train_refuses_pp(tmp_path):
+    """--pp_size 2 on a trunk of 3 layers is refused with svpc_tpu's
+    message (each stage takes an equal block of layers) before any
+    process group or data set is made."""
     from svpc_torch.cli.train import main as train_main
 
-    with pytest.raises(SystemExit) as e:
-        train_main(["--video_feature_dir", "x", "--duration_file", "y",
-                    "--workdir", "z", "--pp_size", "2"])
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="must divide num_hidden_layers=3"):
+        train_main(_fixture(tmp_path) + GEOMETRY + [
+            "--num_hidden_layers", "3", "--pp_size", "2",
+            "--workdir", str(tmp_path / "run")])

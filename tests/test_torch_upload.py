@@ -113,7 +113,8 @@ def test_uploads_caption_as_disk_and_as_svpc_tpu(fixture, tmp_path):
 def test_traversal_guard_and_refusals(fixture, tmp_path):
     """Ids that could escape the spool are refused before any write;
     without --upload_dir inline features are refused; bad payloads,
-    dims and durations are client errors; mesh serving stays refused."""
+    dims and durations are client errors; a serving batch that the mesh's
+    dp axis does not divide is refused."""
     from svpc_torch.serving import CaptionService, ServingError
 
     svc = _port_service(fixture, batch_videos=1,
@@ -145,10 +146,13 @@ def test_traversal_guard_and_refusals(fixture, tmp_path):
             svc.make_entry("fresh", body)
     with pytest.raises(ServingError, match="or upload them"):
         svc.make_entry("never_uploaded", spec)
+    from svpc_torch.parallel.mesh import Mesh
+
     cfg, model = port_model(MODE)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="multiple of the dp mesh axis"):
         CaptionService(cfg.replace_data(**_data(fixture)), model,
-                       mesh=object(), warmup=False, device="cpu")
+                       batch_videos=3, mesh=Mesh(2, 1, 0, 0), warmup=False,
+                       device="cpu")
 
 
 def test_caption_client_uploads_through_the_daemon(fixture, tmp_path):
