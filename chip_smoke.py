@@ -29,7 +29,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
            then GET /v1/stats.  Every request must get one sentence per
            clip, some batch must hold several videos, and the attention
            kernel must launch >= 88 times per decoded batch, through both
-           of its paths.
+           of its paths (a replayed decode graph credits the launches it
+           recorded); /v1/stats' decode_graph_batches and the decode
+           graph counters are printed.
+  decode_graph, decode_graph_bf16
+           (after parity, parity_bf16) the served fixture's batches
+           decoded on the served model by the eager cached loop
+           (greedy_decode(graph=False)) and by the CUDA graph replay,
+           alternating: the tokens must be equal; the host ms of each
+           (ended by a synchronize) and the graph counters.
   parity   one served batch decoded again on the CPU (the plain path):
            first-position probabilities within 1e-4, token agreement.
   serve_bf16, parity_bf16
@@ -52,7 +60,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
            (whose attention is the differentiable plain version), and must
            refuse inputs that want a gradient.  A run killed 3 steps into
            epoch 1 and resumed from its mid-epoch checkpoint must repeat the
-           uninterrupted run's last 3 losses within 1e-5 relative.  One
+           uninterrupted run's last 3 losses within 1e-5 relative.  After
+           each epoch's greedy validation, its first batch (at the eval
+           shape, on the EMA weights the trainer loaded in place) decoded
+           again by graph replay and by the eager loop: equal tokens, a
+           replay, and one capture over both epochs.  One
            train step (dropout 0, the same Gumbel noise) on the card and on
            the CPU from the same weights and batch: caption, entity and
            action losses and the gradient norm within 1e-4 relative, the
@@ -73,7 +85,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
            cli.train --compute_dtype bfloat16 --optimizer_dtype bfloat16
            on the same fixture, 2 epochs x 6 steps with validation: finite
            losses, only the bfloat16 paths of the kernel (in validation),
-           float32 parameters with bfloat16 moments and shadow; the step
+           float32 parameters with bfloat16 moments and shadow; the train
+           phase's eval decode graph check; the step
            timing, memory and profiler window of the train phase; on a
            4-video validation batch the eval forward's probabilities and
            one train step's gradients (each parameter's in its own band),
@@ -249,6 +262,9 @@ BEAM_SHAPES = [
     ("beam2_cross_cached", 192, 1, 3, "ones", NUM_HEADS, 0),
 ]
 BEAM_LAUNCHES = {"beam2_self_cached": 42, "beam2_cross_cached": 42}
+# the greedy decode's cached steps: the launches a replayed decode graph
+# credits a batch (its encode's four calls run in Python)
+DECODE_LAUNCHES = sum(s[6] for s in SERVING_SHAPES if "cached" in s[0])
 # the serving shapes on one rank of a tp=2 mesh: 6 of the 12 heads, H=384
 # (dh=64); launches per decoded batch on each rank are TP2_LAUNCHES
 TP2_SHAPES = [("tp2_" + name, n, lq, lk, form, NUM_HEADS // 2, 0)
@@ -576,6 +592,7 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
     from svpc_torch.config import Config
     from svpc_torch.data import pipeline
     from svpc_torch.data.synthetic import write_serving_fixture
+    from svpc_torch.decode.greedy import GRAPHS, reset_graphs
     from svpc_torch.model import SVPCModel
     from svpc_torch.model.from_jax import save_reference_checkpoint
     from svpc_torch.ops.attention import LAUNCHES, reset_launches
@@ -615,6 +632,7 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
         threads = [threading.Thread(target=ask, args=(v,)) for v in specs]
         torch.cuda.synchronize()
         reset_launches()
+        reset_graphs()
         pipeline.reset_fills()
         t1 = time.perf_counter()
         for t in threads:
@@ -623,6 +641,7 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
             t.join(600)
         wall = time.perf_counter() - t1
         launches = dict(LAUNCHES)
+        graphs = dict(GRAPHS)
         fills = dict(pipeline.FILLS)
         stats = _get(base + "/v1/stats")
         health = _get(base + "/healthz")
@@ -656,7 +675,9 @@ def phase_serve(seed: int, workdir: str, compute_dtype: str = "float32",
           "mean_batch_videos": stats["mean_batch_videos"],
           "latency_ms": stats["latency_ms"], "batch_ms": stats["batch_ms"],
           "launches": launches, "feature_fills": fills,
-          "launches_per_batch": launches["fused_attention"] / batches})
+          "launches_per_batch": launches["fused_attention"] / batches,
+          "decode_graph_batches": stats["decode_graph_batches"],
+          "decode_graphs": graphs})
     captions = {vid: [c["sentence"] for c in resp["captions"]]
                 for vid, (_, resp) in results.items()}
     return service, fx, ckpt, launches, captions
@@ -706,6 +727,49 @@ def phase_parity(service, fx, ckpt):
            "token_agreement": agree}
     if not finite or diff > 1e-4 or (sums - 1.0).abs().max() > 1e-3:
         fail("parity", json.dumps(row))
+    emit(dict(row, ok=True))
+
+
+def phase_decode_graph(service, fx, reps: int = 3):
+    """The served fixture's batches decoded eagerly and by graph replay on
+    the served model, in turns: equal tokens, host ms of each."""
+    from svpc_torch.decode.greedy import GRAPHS, greedy_decode, reset_graphs
+    from svpc_torch.model.svpc import to_tensors
+
+    phase = ("decode_graph" if service.model.compute_dtype == torch.float32
+             else "decode_graph_bf16")
+    vids = list(fx["specs"])
+    batches = []
+    for i in range(0, len(vids), service.batch_videos):
+        examples = [service.example_for(service.make_entry(v, fx["specs"][v]))
+                    for v in vids[i:i + service.batch_videos]]
+        batches.append(to_tensors(service.build_batch(examples),
+                                  service.device, service.feature_dtype))
+
+    def timed(b, graph):
+        t0 = time.perf_counter()
+        out = greedy_decode(service.model, b, graph=graph)
+        torch.cuda.synchronize()
+        return out.cpu(), (time.perf_counter() - t0) * 1e3
+
+    reset_graphs()
+    ms = {"eager": [], "graph": []}
+    equal = []
+    for b in batches:
+        timed(b, True)  # captures where the service's warm-up did not
+        for _ in range(reps):
+            want, t_eager = timed(b, False)
+            got, t_graph = timed(b, True)
+            ms["eager"].append(t_eager)
+            ms["graph"].append(t_graph)
+            equal.append(bool(torch.equal(got, want)))
+    row = {"phase": phase, "batches": len(batches),
+           "clip_rows": [int(b["clip_input_ids"].shape[0]) for b in batches],
+           "tokens_equal": all(equal), "decodes_compared": len(equal),
+           "eager_ms": ms["eager"], "graph_ms": ms["graph"],
+           "graphs": dict(GRAPHS), "card": card_line()}
+    if not row["tokens_equal"] or not GRAPHS["replayed"]:
+        fail(phase, json.dumps(row))
     emit(dict(row, ok=True))
 
 
@@ -817,7 +881,7 @@ def phase_parity_bf16(service, fx, ckpt):
     for cached in (True, False) * 4:
         service.model.train(not cached)
         decode_ms[cached].append(_events_ms(
-            lambda: greedy_decode(service.model, b), reps=2))
+            lambda: greedy_decode(service.model, b, graph=False), reps=2))
     service.model.eval()
     row = {"phase": "parity_bf16", "clips": int(real.sum()),
            "probs_t0": check, "control_probs_t0": control,
@@ -843,6 +907,61 @@ def phase_parity_bf16(service, fx, ckpt):
 
 class _Killed(Exception):
     pass
+
+
+class _EvalGraphCheck:
+    """Around a training run: after each epoch's greedy validation, the
+    decoder's first batch at its eval shape decoded again on the trainer's
+    decode model (the epoch's EMA weights loaded in place) by graph replay
+    and by the eager loop.  ``bad()``: the tokens differ, a decode did not
+    replay, or the later epochs captured anew.  The run's launch and graph
+    counters are left as the run made them."""
+
+    def __init__(self, loop):
+        self.loop, self.rows = loop, []
+
+    def __enter__(self):
+        from svpc_torch.decode import greedy
+        from svpc_torch.model.svpc import to_tensors
+        from svpc_torch.ops.attention import LAUNCHES
+
+        real = self.real = self.loop.run_greedy_eval
+        start = dict(greedy.GRAPHS)
+
+        def checked(model, dataset, cfg, *args, decoder=None, **kwargs):
+            out = real(model, dataset, cfg, *args, decoder=decoder, **kwargs)
+            batch_np, _ = next(dataset.batches(
+                decoder["cfg"].train.val_batch_size,
+                builder=decoder["builder"]))
+            b = to_tensors(batch_np, decoder["device"],
+                           decoder["feature_dtype"])
+            launches, graphs = dict(LAUNCHES), dict(greedy.GRAPHS)
+            got = greedy.greedy_decode(model, b)
+            replayed = greedy.replayed_last()
+            want = greedy.greedy_decode(model, b, graph=False)
+            self.rows.append({
+                "clip_rows": int(b["clip_input_ids"].shape[0]),
+                "tokens_equal": bool(torch.equal(got, want)),
+                "replayed": replayed,
+                "captured": greedy.GRAPHS["captured"] - start["captured"]})
+            LAUNCHES.update(launches)
+            greedy.GRAPHS.update(graphs)
+            return out
+
+        self.loop.run_greedy_eval = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.run_greedy_eval = self.real
+
+    def bad(self) -> list:
+        rows = self.rows
+        if not rows:
+            return ["no greedy validation ran"]
+        return ([f"epoch {i}: {r}" for i, r in enumerate(rows)
+                 if not (r["tokens_equal"] and r["replayed"])]
+                + (["a later epoch captured its eval graph anew"]
+                   if rows[-1]["captured"] != rows[0]["captured"] else []))
 
 
 def _train_cfg(fx):
@@ -1148,9 +1267,9 @@ def _validation_check(state, cfg, seed):
                 "total_loss", "caption_loss", "entity_loss",
                 "action_loss", "re_entity_loss", "re_action_loss")}
             probs[dev] = out.prediction_scores.float().cpu()
-        rec.stage = "greedy"
+        rec.stage = "greedy"  # eager: each call recorded once
         greedy_decode(models["cuda"],
-                      to_tensors(batch_np, torch.device("cuda")))
+                      to_tensors(batch_np, torch.device("cuda")), graph=False)
     rel = _rel(res)
     parity = {"losses": res, "rel": rel, "gumbel_flips": gumbel.flips(),
               "max_abs_diff_probs": (probs["cuda"] - probs["cpu"])
@@ -1185,9 +1304,14 @@ def phase_train(seed: int, workdir: str):
     torch.cuda.synchronize()
     reset_launches()
     t1 = time.perf_counter()
-    res_a, in_steps = _counted_train(loop, cfg, os.path.join(workdir, "a"))
+    with _EvalGraphCheck(loop) as eval_graph:
+        res_a, in_steps = _counted_train(loop, cfg,
+                                         os.path.join(workdir, "a"))
     train_s = time.perf_counter() - t1
     launches = dict(LAUNCHES)
+    if eval_graph.bad():
+        fail("train", f"the eval decode graph: {eval_graph.bad()} "
+                      f"{eval_graph.rows}")
     losses = [s["loss"] for s in res_a["steps"]]
     if len(losses) != 12 or not all(math.isfinite(x) for x in losses):
         fail("train", f"losses {losses}")
@@ -1262,7 +1386,7 @@ def phase_train(seed: int, workdir: str):
            "repeat_step_bitwise": bitwise,
            "parity": parity, "parity_rel": rel, "gumbel_flips": flips,
            "validation_parity": val_parity, "validation_kernel": val_rows,
-           "card": card_line()}
+           "eval_graph": eval_graph.rows, "card": card_line()}
     if bad:
         fail("train", f"card and CPU disagree on {bad}: {json.dumps(row)}")
     emit(dict(row, ok=True))
@@ -1356,10 +1480,14 @@ def phase_train_bf16(seed: int, workdir: str, fx):
     torch.cuda.synchronize()
     reset_launches()
     t1 = time.perf_counter()
-    res, in_steps = _counted_train(loop, None, wd,
-                                   run=lambda: train_cli.main(argv))
+    with _EvalGraphCheck(loop) as eval_graph:
+        res, in_steps = _counted_train(loop, None, wd,
+                                       run=lambda: train_cli.main(argv))
     train_s = time.perf_counter() - t1
     launches = dict(LAUNCHES)
+    if eval_graph.bad():
+        fail("train_bf16", f"the eval decode graph: {eval_graph.bad()} "
+                           f"{eval_graph.rows}")
     losses = [s["loss"] for s in res["steps"]]
     if len(losses) != 12 or not all(math.isfinite(x) for x in losses):
         fail("train_bf16", f"losses {losses}")
@@ -1400,7 +1528,8 @@ def phase_train_bf16(seed: int, workdir: str, fx):
            "clips_per_s": clips / step_ms * 1e3,
            "max_memory_allocated": peak, "profile": profile,
            "parity": checks, "control": control,
-           "parity_eval_losses": eval_losses, "card": card_line()}
+           "parity_eval_losses": eval_losses,
+           "eval_graph": eval_graph.rows, "card": card_line()}
     bad = [k for k, c in checks.items() if not c["ok"]]
     if all(c["ok"] for c in control.values()):
         bad.append("the control (a perturbed weight) passed")
@@ -2829,10 +2958,13 @@ def phase_serve_mesh(fx, ckpt, want, workdir):
     on each rank and counts its attention calls after the warm-up): the
     serve phase's burst of concurrent requests, captions equal to the
     one-process serve phase's; both kernel paths launch on every rank,
-    and at tp2 every launch takes 6 heads.  Every attention form either
-    rank ran in the burst (dp2: a rank's block of the batch, at 12 heads;
-    tp2: the whole batch at 6) is recorded there and held against
-    attention_plain here (``_form_rows``)."""
+    every attention call launches the kernel (a dp2 rank's decode replays
+    a CUDA graph captured in its warm-up, which credits the
+    ``DECODE_LAUNCHES`` it recorded), and at tp2 (eager: its steps hold
+    collectives) every launch takes 6 heads.  Every attention form either
+    rank ran in Python in the burst (dp2: the encode of a rank's block of
+    the batch, at 12 heads; tp2: the whole batch at 6) is recorded there
+    and held against attention_plain here (``_form_rows``)."""
     from svpc_torch.parallel.mesh import free_port
     from svpc_torch.parallel.worker import Ranks
 
@@ -2919,6 +3051,8 @@ def phase_serve_mesh(fx, ckpt, want, workdir):
                      "videos_captioned_differently": differ,
                      "launches_by_rank": [r["launches"] for r in rows],
                      "heads_by_rank": [r["heads"] for r in rows],
+                     "decode_graphs_by_rank": [r["decode_graphs"]
+                                               for r in rows],
                      "forms": forms}
         launches += rows
         if errors or differ:
@@ -2929,9 +3063,13 @@ def phase_serve_mesh(fx, ckpt, want, workdir):
                     and l["fused_attention.decode.f32"]):
                 bad.append(f"{name}: a kernel path did not launch on a "
                            f"rank: {l}")
-            if l["fused_attention"] != sum(r["heads"].values()):
+            replayed = r["decode_graphs"]["replayed"]
+            if l["fused_attention"] != sum(r["heads"].values()) + \
+                    replayed * DECODE_LAUNCHES:
                 bad.append(f"{name}: an attention call did not launch the "
                            "kernel")
+            if replayed and name == "tp2":
+                bad.append("tp2: a decode replayed a graph")
             if set(r["heads"]) != {"6" if name == "tp2" else "12"}:
                 bad.append(f"{name}: head counts {r['heads']}")
     total = _sum_launches(launches)
@@ -2967,10 +3105,12 @@ def main(argv=None) -> int:
         service, fx, ckpt, phases["serve"], captions = phase_serve(
             args.seed, workdir)
         phase_parity(service, fx, ckpt)
+        phase_decode_graph(service, fx)
         phase_native(service, fx, workdir)
         service16, _, _, phases["serve_bf16"], _ = phase_serve(
             args.seed, workdir, "bfloat16", fx, ckpt)
         phase_parity_bf16(service16, fx, ckpt)
+        phase_decode_graph(service16, fx)
         del service, service16
         phases["serve_upload"] = phase_serve_upload(fx, ckpt, workdir)
         phases["serve_mesh"] = phase_serve_mesh(fx, ckpt, captions, workdir)

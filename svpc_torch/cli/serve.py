@@ -31,8 +31,10 @@ API (JSON over HTTP):
        "n_frames", spooled as float32 files; svpc_torch.client.
        CaptionClient sends them)
   GET /healthz     -> {"status": "ok", ...model/serving geometry...}
-  GET /v1/stats    -> request/batch counters + latency quantiles, and the
-                      decoder ("greedy" or "beam{K}") with its n_best
+  GET /v1/stats    -> request/batch counters (``decode_graph_batches``:
+                      batches whose greedy decode replayed a CUDA graph)
+                      + latency quantiles, and the decoder ("greedy" or
+                      "beam{K}") with its n_best
 
 Errors: 400 (bad spec / unknown video), 411 (chunked body), 502 (device
 batch failed), 503 (decode timeout), 500.

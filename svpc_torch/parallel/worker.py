@@ -461,9 +461,12 @@ def job_serve(spec, mesh, device) -> None:
 def job_cli_serve(spec, mesh, device) -> None:
     """``svpc_torch.cli.serve.main(spec["argv"])`` on this rank, its
     attention calls counted (with ``record_forms``, recorded by form) from
-    the end of the service's warm-up; with ``fail_rank``, that rank's
-    fill of every announced batch raises."""
+    the end of the service's warm-up, with the kernel launches and the
+    decode graph counters (a replayed decode calls no attention in
+    Python); with ``fail_rank``, that rank's fill of every announced
+    batch raises."""
     from svpc_torch.cli import serve
+    from svpc_torch.decode.greedy import GRAPHS, reset_graphs
     from svpc_torch.ops.attention import LAUNCHES, reset_launches
     from svpc_torch.serving import CaptionService
 
@@ -473,6 +476,7 @@ def job_cli_serve(spec, mesh, device) -> None:
         def warmup(service):
             real[0](service)
             reset_launches()
+            reset_graphs()
             rec.reset()
 
         def examples_from(service, entries):
@@ -486,7 +490,8 @@ def job_cli_serve(spec, mesh, device) -> None:
         finally:
             CaptionService.warmup, CaptionService._examples_from = real
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
-        json.dump({"launches": dict(LAUNCHES), "heads": rec.heads}, f)
+        json.dump({"launches": dict(LAUNCHES), "heads": rec.heads,
+                   "decode_graphs": dict(GRAPHS)}, f)
     if rec.keep:
         torch.save(rec.form_list(),
                    os.path.join(spec["out"], f"forms_rank{rank}.pt"))

@@ -51,7 +51,7 @@ from svpc_torch.data.packing import shard_clip_counts
 from svpc_torch.data.pipeline import (CaptionDataset, Example, batch_examples,
                                       inference_entries, pad_batch_to)
 from svpc_torch.decode.beam import beam_decode
-from svpc_torch.decode.greedy import greedy_decode
+from svpc_torch.decode.greedy import greedy_decode, replayed_last
 from svpc_torch.decode.postprocess import batch_to_sentences, nbest_entries
 from svpc_torch.model.svpc import to_tensors
 from svpc_torch.parallel.collectives import gather_dim
@@ -616,14 +616,19 @@ class ServingStats:
         self.batches = 0
         self.videos = 0
         self.clips = 0
+        self.graph_batches = 0
         self._lat = collections.deque(maxlen=window)
         self._batch_s = collections.deque(maxlen=window)
 
     def record_batch(self, n_videos: int, n_clips: int,
                      latencies: Sequence[float],
-                     batch_seconds: Optional[float] = None) -> None:
+                     batch_seconds: Optional[float] = None,
+                     graphed: bool = False) -> None:
+        """``graphed``: the batch's decode replayed a CUDA graph
+        (decode/greedy.py)."""
         with self._lock:
             self.batches += 1
+            self.graph_batches += graphed
             self.videos += n_videos
             self.clips += n_clips
             self.requests += n_videos
@@ -651,6 +656,7 @@ class ServingStats:
                 "batches": self.batches,
                 "videos": self.videos,
                 "clips": self.clips,
+                "decode_graph_batches": self.graph_batches,
                 "mean_batch_videos": (round(self.videos / self.batches, 2)
                                       if self.batches else None),
                 "latency_ms": self._quantiles(self._lat),
@@ -747,6 +753,7 @@ class DynamicBatcher:
                 payloads = self.service.decode_payloads(
                     [p.example for p in items])
                 batch_s = time.perf_counter() - t0
+                graphed = replayed_last()
                 for p, clips in zip(items, payloads):
                     p.result = clips
                 # only requests still owned by a waiter count
@@ -755,7 +762,7 @@ class DynamicBatcher:
                     len(mine),
                     sum(p.example.meta["n_steps"] for p in mine),
                     [time.perf_counter() - p.t_submit for p in mine],
-                    batch_seconds=batch_s)
+                    batch_seconds=batch_s, graphed=graphed)
             except Exception as e:  # surface to every waiter
                 logger.exception("batched decode failed")
                 err = DecodeFailure(f"batched decode failed: {e!r}")
