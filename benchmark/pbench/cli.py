@@ -71,30 +71,18 @@ def forbidden_modules(modules=None):
     return sorted({m.split(".")[0] for m in modules} & set(FORBIDDEN))
 
 
-def model_config(c: Dict, control: Optional[str]):
-    from svpc_torch.config import ModelConfig
-    names = {f.name for f in dataclasses.fields(ModelConfig)}
-    cfg = ModelConfig(**{k: v for k, v in c.items() if k in names})
-    if control == "bf16":
-        cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    return cfg
-
-
 def _finite(x: float) -> float:
     return x if math.isfinite(x) else 1e300
 
 
 def execute(ctx: Context) -> Tuple[Dict, list]:
     """Run the cell; -> (the result line's object, the check lines)."""
-    ctx.model_cfg = model_config(ctx.config, ctx.control)
-    kind = ctx.traffic["kind"]
-    if kind == "serve":
-        from pbench import serve as driver
-    elif kind == "train":
-        from pbench import train as driver
+    ctx.model_cfg = ctx.cell.arch.model_config(ctx.config, ctx.control)
+    if ctx.traffic["kind"] == "serve":  # the shared window, the arch's hooks
+        from pbench import serve
+        record = serve.run(ctx)
     else:
-        raise ValueError(f"unknown traffic kind {kind!r}")
-    record = driver.run(ctx)
+        record = ctx.cell.hooks(ctx)
     record["trace_on"] = ctx.trace
     metrics = ctx.cell.metrics(record, ctx.trace)
     checks = {}

@@ -19,6 +19,10 @@ Frozen from svpc_torch/data/synthetic.py (``write_serving_fixture``,
   reads only the rows of a video's own segments (the native packer maps
   each path on its own), so this changes no read, and it keeps what a run
   writes to a few hundred MB however many videos the pool has.
+
+The training split file lists the videos in the plan's order (the video
+with the plan's first sizes first), so that a shuffle fixed by
+``plan_seed`` cuts every seed's pool into batches of the same sizes.
 """
 
 from __future__ import annotations
@@ -150,9 +154,10 @@ def write_pool(root: str, c: Dict, traffic: Dict, seed: int,
                                alignment=alignment, action=action)
     with open(paths["duration_file"], "w") as f:
         f.writelines(rows)
-    if annotated:
+    if annotated:  # in the plan's order: see train.py's shuffle
+        by_plan = [f"vid{v:04d}" for v in np.argsort(order)]
         with open(os.path.join(root, TRAIN_SPLIT_FILE), "w") as f:
-            json.dump(split, f)
+            json.dump({name: split[name] for name in by_plan}, f)
     return dict(paths, specs=specs, frm2sec=f2s_of)
 
 

@@ -1,34 +1,35 @@
-"""A serving cell: ``cli.serve``'s daemon (``start_server`` over
-``CaptionService``) in this process, the load generator in another.
+"""The serving window that every architecture shares: ``cli.serve``'s
+daemon (``start_server`` over the service the architecture builds) in this
+process, the load generator in another.
 
-Set-up writes the video pool, makes the weights from the seed on the
-device, builds and warms the service (one decode per clip bucket) and
-sends every pool video once through HTTP.  The window then runs the
-traffic file's loop for ``--seconds``.  What the timed path produced is
-recorded where the tokens meet the requests (``batch_to_sentences``,
-which turns each decoded batch into the replies), for the reference
-check after the window.  Traced runs add host spans around the batch
-build, the host-to-device copy and the decode, record each attention
-call's shapes, and profile the window's last seconds.
+Set-up writes the video pool, has the architecture build and warm the
+service on the device from the seed's weights (``Hooks.build``) and put in
+its wrappers (``Hooks.install``), and sends every pool video once through
+HTTP.  The window then runs the traffic file's loop for ``--seconds``.
+After it: the request accounting, each served video's operations
+(``Hooks.video_flops``), what a traced run's profiled slice recorded
+(``Hooks.slice_readings``) and the reference check (``Hooks.check``).
+Traced runs profile the window's last seconds; the architecture's
+wrappers record the spans and the calls' shapes there.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
 import urllib.request
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 
-from pbench import flops, peaks
+from pbench import peaks
 from pbench.fixture import pool_sizes, write_pool
 from pbench.host import probe
 from pbench.trace import Spans, profile_window
-from pbench.weights import make_weights
 
 LOADGEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "loadgen.py")
@@ -53,54 +54,35 @@ def _schedule(traffic: Dict, seed: int, n_pool: int, seconds: float):
     return sequence.tolist(), offsets
 
 
+@dataclasses.dataclass(frozen=True)
+class Hooks:
+    """What an architecture gives the serving window (benchmark/arch/)."""
+    # (ctx, fixture) -> the service (``build_batch``, ``close``; served by
+    # ``start_server``), built on the device with the seed's weights and
+    # warmed
+    build: Callable
+    # (ctx, service, served, rec, spans, calls) -> remove(): puts in the
+    # wrappers that append (video id, tokens) to ``served`` while
+    # ``rec["on"]``, add the spans "build", "copy" and "decode" to
+    # ``spans`` with ``spans.wrap`` (a call that may replay CUDA graphs
+    # runs inside one: pbench/spec.py) and the shapes a roofline reads to
+    # ``calls["shapes"]`` while ``calls["on"]``; remove() takes them out
+    install: Callable
+    # (c, frames, entities, ingredient tokens) -> operations of one served
+    # video
+    video_flops: Callable
+    # (calls) -> what a traced run's record gains from the calls recorded
+    # in the profiled slice
+    slice_readings: Callable
+    # (ctx, fixture, served) -> the numbers compared, by name
+    check: Callable
+
+
 def _install(ctx, svc, served, rec, spans, calls):
-    """The benchmark's wrappers around the program's calls; returns a
-    function that takes them out again."""
-    import torch
-    import svpc_torch.model.layers as layers
-    import svpc_torch.serving as serving
-    saved = [(serving, "batch_to_sentences", serving.batch_to_sentences),
-             (serving, "greedy_decode", serving.greedy_decode),
-             (serving, "to_tensors", serving.to_tensors),
-             (layers, "fused_attention", layers.fused_attention)]
-    b2s, greedy = serving.batch_to_sentences, serving.greedy_decode
-
-    def batch_to_sentences(out, metas, vocab):
-        if rec["on"]:
-            served.extend((m["name"], np.array(out[i, :m["n_steps"]]))
-                          for i, m in enumerate(metas))
-        return b2s(out, metas, vocab)
-
-    serving.batch_to_sentences = batch_to_sentences
-    if ctx.fault == "token":  # a planted fault: one token of each request
-        def altered(model, batch):
-            out = greedy(model, batch)
-            out[:, 0, 1] = torch.where(out[:, 0, 1] == 7, 8, 7)
-            return out
-        serving.greedy_decode = altered
-    if ctx.trace:
-        sync = torch.cuda.synchronize
-        svc.build_batch = spans.wrap("build", svc.build_batch)
-        serving.to_tensors = spans.wrap("copy", serving.to_tensors, sync)
-        serving.greedy_decode = spans.wrap("decode", serving.greedy_decode,
-                                           sync)
-        fused = layers.fused_attention
-
-        def fused_attention(q, k, v, mask, num_heads):
-            if calls["on"]:
-                calls["shapes"].append(
-                    (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                     mask.numel(), q.element_size(), mask.element_size(),
-                     "bfloat16" if q.dtype == torch.bfloat16
-                     else "float32"))
-            return fused(q, k, v, mask, num_heads)
-
-        layers.fused_attention = fused_attention
-
-    def remove():
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    return remove
+    """The cell's architecture's wrappers around the program's calls;
+    returns a function that takes them out again.  (tools/
+    decode_graph_roofline.py wraps this function.)"""
+    return ctx.cell.hooks.install(ctx, svc, served, rec, spans, calls)
 
 
 def run(ctx) -> Dict:
@@ -109,26 +91,14 @@ def run(ctx) -> Dict:
     import torch
     import svpc_torch.serving as serving
     from svpc_torch.cli.serve import start_server, stop_server
-    from svpc_torch.config import Config, DataConfig
-    from svpc_torch.model import SVPCModel
 
     c, traffic, seed, device = ctx.config, ctx.traffic, ctx.seed, ctx.device
+    hooks = ctx.cell.hooks
     W = ctx.seconds
     fx = write_pool(ctx.workdir, c, traffic, seed)
     names = list(fx["specs"])
     ctx.mark("pool written")
-    cfg = Config(model=ctx.model_cfg, data=DataConfig(
-        video_feature_dir=fx["video_feature_dir"],
-        duration_file=fx["duration_file"],
-        word2idx_path=fx["word2idx_path"],
-        verb2idx_path=fx["verb2idx_path"]))
-    with torch.device(device):  # parameters made on the device
-        model = SVPCModel(cfg.model).to(device)
-    model.load_state_dict(make_weights(c, seed, device), strict=True)
-    svc = serving.CaptionService(cfg, model, device=device,
-                                 batch_videos=traffic["batch_videos"],
-                                 max_clips=traffic["max_clips"])
-    del model
+    svc = hooks.build(ctx, fx)
     ctx.mark("service built and warmed")
     served, rec, spans = [], {"on": False}, Spans()
     calls = {"on": False, "shapes": []}
@@ -169,7 +139,8 @@ def run(ctx) -> Dict:
             def switch(on):
                 calls["on"] = on
             length = min(traffic["profile_s"], 0.5 * W)
-            sl = profile_window(switch, W - length, length, t0, ctx.workdir)
+            sl = profile_window(switch, W - length, length, t0, ctx.workdir,
+                                spans.quiet)
         result = json.loads(lg.stdout.readline())
         lg.wait(timeout=60)
         probe("after the window")
@@ -208,7 +179,7 @@ def run(ctx) -> Dict:
               *(1e3 * h[len(h) // 2] if h else 0.0 for h in halves)),
           file=sys.stderr)
     sizes = pool_sizes(c, fx)
-    model_flops = sum(flops.serve_video_flops(c, *sizes[r["video"]])
+    model_flops = sum(hooks.video_flops(c, *sizes[r["video"]])
                       for r in done)
     record = dict(
         kind="serve", window_s=W, setup_s=setup_s,
@@ -223,9 +194,6 @@ def run(ctx) -> Dict:
         spans={n: spans.durations(n) for n in ("build", "copy", "decode")},
         trace=trace)
     if trace is not None:
-        record["attention_bound_s"] = sum(
-            flops.attention_bound_s(*s) for s in calls["shapes"])
-    from pbench.check import check_serving
-    record["checks"] = check_serving(c, seed, fx, served,
-                                     traffic["check_requests"], device)
+        record.update(hooks.slice_readings(calls))
+    record["checks"] = hooks.check(ctx, fx, served)
     return record

@@ -25,11 +25,15 @@ MARK = "pbench.slice_start"
 
 class Spans:
     """Host spans (name, start, end) on the monotonic clock, kept in
-    memory; recorded only while ``on``."""
+    memory; recorded only while ``on``.  ``quiet`` is held around each
+    call that ``wrap`` times and while the profiled slice starts and stops
+    torch.profiler: a start or stop across a CUDA graph replay in another
+    thread can deadlock both."""
 
     def __init__(self):
         self.on = False
         self._lock = threading.Lock()
+        self.quiet = threading.RLock()
         self.items: List[Tuple[str, float, float]] = []
 
     def add(self, name: str, t0: float, t1: float) -> None:
@@ -41,16 +45,17 @@ class Spans:
         return [t1 - t0 for n, t0, t1 in self.items if n == name]
 
     def wrap(self, name: str, fn, sync=None):
-        """``fn`` timed as span ``name``; ``sync()`` ends it (a device
-        synchronize) when given."""
+        """``fn`` timed as span ``name``, holding ``quiet``; ``sync()`` ends
+        it (a device synchronize) when given."""
         def wrapped(*args, **kwargs):
             if not self.on:
                 return fn(*args, **kwargs)
-            t0 = time.monotonic()
-            out = fn(*args, **kwargs)
-            if sync is not None:
-                sync()
-            self.add(name, t0, time.monotonic())
+            with self.quiet:
+                t0 = time.monotonic()
+                out = fn(*args, **kwargs)
+                if sync is not None:
+                    sync()
+                self.add(name, t0, time.monotonic())
             return out
         return wrapped
 
@@ -77,12 +82,12 @@ class ProfilerSlice:
         torch.cuda.synchronize()
         self.t_stop = time.monotonic()
         self.prof.__exit__(None, None, None)
-        self.prof.export_chrome_trace(self.path)
-        self.prof = None
 
     def read(self, spans: Spans) -> Dict:
         """busy_s, window_s, the device operations and idle gaps, and the
         attention kernel's device seconds."""
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
         with open(self.path) as f:
             events = json.load(f)["traceEvents"]
         os.remove(self.path)
@@ -135,14 +140,18 @@ def summarize(dev: List[Tuple[float, float, str]], length_us: float,
 
 
 def profile_window(run_slice, offset_s: float, length_s: float,
-                   t0: float, workdir: str) -> Optional[ProfilerSlice]:
+                   t0: float, workdir: str,
+                   quiet: threading.RLock) -> Optional[ProfilerSlice]:
     """Sleep until ``t0 + offset_s``, profile ``length_s`` seconds while
-    ``run_slice(on)`` switches the recording wrappers on and off."""
+    ``run_slice(on)`` switches the recording wrappers on and off; the
+    profiler starts and stops holding ``quiet`` (``Spans.quiet``)."""
     time.sleep(max(0.0, t0 + offset_s - time.monotonic()))
     sl = ProfilerSlice(workdir)
-    sl.start()
+    with quiet:
+        sl.start()
     run_slice(True)
     time.sleep(length_s)
     run_slice(False)
-    sl.stop()
+    with quiet:
+        sl.stop()
     return sl

@@ -149,9 +149,16 @@ def run(ctx) -> Dict:
         return TrainState.create(model, make_optimizer(
             cfg.train, steps_per_epoch, params), use_ema=True)
 
+    # every seed trains on batches of the same sizes in the same order
+    # (the split lists the videos in the plan's order, and the shuffles
+    # are the plan's): the same work and the same memory from seed to
+    # seed; the seed draws the weights, the values and the dropout
+    shuffle_seed = int(np.random.SeedSequence(
+        [ctx.traffic["plan_seed"], 6]).generate_state(1)[0])
+
     def epoch_batches(epoch):
         host = ds.batches(cfg.train.batch_size, shuffle=True,
-                          seed=(cfg.train.seed + epoch) % 2 ** 32,
+                          seed=(shuffle_seed + epoch) % 2 ** 32,
                           builder=loop.packing_builder(cfg))
         return prefetch_to_device(host, device, size=2,
                                   feature_dtype=model.compute_dtype)

@@ -1,7 +1,6 @@
-"""Helpers of the benchmark's CPU tests: a benchmark tree at
-``tiny_test_config`` sizes whose cells run the real harness."""
+"""Helpers of the benchmark's CPU tests: a benchmark tree at its
+architectures' tiny sizes whose cells run the real harness."""
 
-import dataclasses
 import json
 import os
 import shutil
@@ -19,15 +18,18 @@ OPEN_TRAFFIC = dict(loop="open", rate_per_s=20.0, senders=8)
 def make_tiny_root(path) -> str:
     """A copy of the benchmark's data files at tiny sizes under ``path``:
     BENCHMARK.json (with a cell of open-loop arrivals, which the load
-    generator keeps for a later cell), the configurations cut to
-    ``tiny_test_config``, the traffic files cut to a pool of 8 short
-    videos, the limits; the metric readers are the real ones."""
-    from svpc_torch.config import tiny_test_config
+    generator keeps for a later cell), each configuration cut by its
+    architecture's ``tiny``, the traffic files cut to a pool of 8 short
+    videos, the limits; the metric readers and the architectures are
+    copies of the real ones."""
+    from pbench.spec import load_architecture
     root = str(path)
     b = os.path.join(root, "benchmark")
     for d in ("configs", "traffic", "limits"):
         os.makedirs(os.path.join(b, d))
-    os.symlink(os.path.join(BENCH, "metrics"), os.path.join(b, "metrics"))
+    for d in ("metrics", "arch"):
+        shutil.copytree(os.path.join(BENCH, d), os.path.join(b, d),
+                        ignore=shutil.ignore_patterns("__pycache__"))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
     bench["workloads"].append(dict(
@@ -38,14 +40,11 @@ def make_tiny_root(path) -> str:
             m["workloads"].append("vivt-serve-open")
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
-    modes = {"vivt": "full", "v": "video"}
     for entry in bench["configs"]:
         with open(os.path.join(ROOT, entry["file"])) as f:
             c = json.load(f)
-        c.update(dataclasses.asdict(tiny_test_config(modes[entry["name"]])
-                                    .model))
         with open(os.path.join(root, entry["file"]), "w") as f:
-            json.dump(c, f)
+            json.dump(load_architecture(root, c)[1].tiny(c), f)
     for name in os.listdir(os.path.join(BENCH, "traffic")):
         with open(os.path.join(BENCH, "traffic", name)) as f:
             t = json.load(f)

@@ -1,8 +1,11 @@
 """The yardstick's arithmetic against counts made by hand."""
 
+import threading
+import time
+
 import pytest
 
-from pbench import flops, peaks
+from pbench import flops, peaks, trace
 from pbench.trace import Spans, summarize
 
 C = dict(hidden_size=2, intermediate_size=4, lstm_hidden_size=2,
@@ -67,3 +70,57 @@ def test_trace_summary_busy_union_and_gaps():
     assert [n for n, _ in out["device_ops"]] == ["a", "b"]
     gaps = {round(s * 1e6, 6): n for n, s in out["idle_gaps"]}
     assert gaps == {3.0: "none", 2.0: "none", 1.0: "build"}
+
+
+def _held_elsewhere(lock) -> bool:
+    """Whether another thread holds ``lock``."""
+    out = []
+
+    def probe():
+        got = lock.acquire(blocking=False)
+        if got:
+            lock.release()
+        out.append(not got)
+
+    t = threading.Thread(target=probe)
+    t.start()
+    t.join()
+    return out[0]
+
+
+def test_profiled_slice_starts_and_stops_holding_quiet(monkeypatch,
+                                                       tmp_path):
+    # torch.profiler starting or stopping across a CUDA graph replay in
+    # another thread can deadlock: the spans hold Spans.quiet, and so does
+    # the slice while it starts and stops the profiler
+    quiet = Spans().quiet
+    seen = []
+
+    class Slice:
+        def __init__(self, workdir):
+            pass
+
+        def start(self):
+            seen.append(("start", _held_elsewhere(quiet)))
+
+        def stop(self):
+            seen.append(("stop", _held_elsewhere(quiet)))
+
+    monkeypatch.setattr(trace, "ProfilerSlice", Slice)
+    trace.profile_window(lambda on: seen.append((on, _held_elsewhere(quiet))),
+                         0.0, 0.01, time.monotonic(), str(tmp_path), quiet)
+    assert seen == [("start", True), (True, False), (False, False),
+                    ("stop", True)]
+    assert not _held_elsewhere(quiet)
+
+
+def test_spans_hold_quiet_around_the_calls_they_time():
+    s = Spans()
+    inner = s.wrap("copy", lambda: _held_elsewhere(s.quiet))
+    outer = s.wrap("decode", lambda: (_held_elsewhere(s.quiet), inner()))
+    assert outer() == (False, False)  # off: neither held nor timed
+    assert s.items == []
+    s.on = True
+    assert outer() == (True, True)  # spans may nest
+    assert [n for n, _, _ in s.items] == ["copy", "decode"]
+    assert not _held_elsewhere(s.quiet)

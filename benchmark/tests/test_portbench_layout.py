@@ -13,6 +13,7 @@ import sys
 import pytest
 
 from pbench.cli import FORBIDDEN, forbidden_modules
+from pbench.serve import Hooks
 from pbench.spec import Cell, load_benchmark
 from portbench_tiny import BENCH, ROOT
 
@@ -21,8 +22,22 @@ def test_cells_find_their_files_by_name():
     bench = load_benchmark(ROOT)
     for w in bench["workloads"]:
         cell = Cell(w["name"], bench, root=ROOT)
-        assert cell.config["model_mode"] in ("full", "video")
-        assert cell.traffic["kind"] in ("serve", "train")
+        # the cell's architecture builds the program's configuration from
+        # the file (SVPC: ModelConfig.validate, model_mode among its
+        # modes), and every setting of the file that the program has
+        # reaches it unchanged
+        cfg = cell.arch.model_config(cell.config, None)
+        for key, value in cell.config.items():
+            if hasattr(cfg, key):
+                assert getattr(cfg, key) == value, key
+        assert set(cell.arch.tiny(cell.config)) >= set(cell.config)
+        kind = cell.traffic["kind"]
+        assert kind in ("serve", "train")
+        assert cell.hooks is cell.arch.KINDS[kind]
+        if kind == "serve":
+            assert isinstance(cell.hooks, Hooks)
+        else:
+            assert callable(cell.hooks)
         assert cell.limits
         names = [m["name"] for m in cell.end_to_end + cell.per_layer]
         assert "setup_s" in names
@@ -70,7 +85,8 @@ def test_new_config_traffic_metric_and_cell_are_only_added(tmp_path):
         name="serve.requests", unit="requests", better="higher",
         source="program_counter", layer="a test", moves="setup_s",
         workloads=["viv-serve-burst"]))
-    bench["end_to_end"][0]["workloads"].append("viv-serve-burst")
+    next(m for m in bench["end_to_end"] if m["name"] ==
+         "memory_peak_mib.serve")["workloads"].append("viv-serve-burst")
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
     after = _snapshot(b)
@@ -78,14 +94,13 @@ def test_new_config_traffic_metric_and_cell_are_only_added(tmp_path):
     cell = Cell("viv-serve-burst", load_benchmark(root), root=root)
     assert cell.config["model_mode"] == "reason_copy"
     assert cell.traffic["clients"] == 32
-    got = cell.metrics({"latencies_ms": [1.0, 2.0], "kind": "serve",
-                        "clips_in_window": 4, "window_s": 2.0,
-                        "setup_s": 1.0}, trace=True)
+    run = {"latencies_ms": [1.0, 2.0], "kind": "serve",
+           "clips_in_window": 4, "window_s": 2.0, "setup_s": 1.0,
+           "memory_peak_bytes": 2 ** 20}
+    got = cell.metrics(run, trace=True)
     assert got == {"serve.requests": {"value": 2.0, "unit": "requests"}}
-    assert set(cell.metrics({"latencies_ms": [], "kind": "serve",
-                             "clips_in_window": 4, "window_s": 2.0,
-                             "setup_s": 1.0}, trace=False)) == {
-        "serve_clips_per_s", "setup_s"}
+    assert set(cell.metrics(run, trace=False)) == {
+        "setup_s", "memory_peak_mib.serve"}
 
 
 def test_top_level_names_compare_whole():

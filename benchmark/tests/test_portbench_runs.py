@@ -29,11 +29,17 @@ def _schema(out, lines, e2e):
     assert lines[-1].startswith("check ")
 
 
-@pytest.mark.parametrize("workload", ["vivt-serve-flood", "v-serve-flood",
-                                      "vivt-serve-open"])
-def test_serving_run_matches_the_reference(tiny_root, tmp_path, workload):
+# end-to-end metrics a CPU run reports: the card's memory peak reads
+# nothing there (test_memory_peak_is_read_from_the_card)
+@pytest.mark.parametrize("workload,e2e", [
+    ("vivt-serve-flood", ["setup_s"]),
+    ("v-serve-flood", ["setup_s"]),
+    ("vivt-serve-open", ["setup_s"]),
+])
+def test_serving_run_matches_the_reference(tiny_root, tmp_path, workload,
+                                           e2e):
     out, lines = run_tiny(tiny_root, workload, tmp_path)
-    _schema(out, lines, ["serve_clips_per_s", "setup_s"])
+    _schema(out, lines, e2e)
     assert out["correct"], out["checks"]
     assert out["attempted"] > 0 and out["failed"] == 0
     assert out["checks"]["logprob_gap"]["value"] <= 1e-5
@@ -59,3 +65,19 @@ def test_a_broken_timed_path_is_not_correct(tiny_root, tmp_path, workload,
     assert not out["correct"]
     c = out["checks"][caught]
     assert c["value"] > c["limit"]
+
+
+@pytest.mark.parametrize("workload,kind", [
+    ("vivt-serve-flood", "serve"), ("v-serve-flood", "serve"),
+    ("vivt-train", "train")])
+def test_memory_peak_is_read_from_the_card(tiny_root, workload, kind):
+    from pbench.spec import Cell, load_benchmark
+    cell = Cell(workload, load_benchmark(tiny_root), root=tiny_root)
+    run = dict(kind=kind, setup_s=1.0, clips_in_window=8, window_s=2.0,
+               memory_peak_bytes=786674176)
+    (name,) = [m for m in cell.metrics(run, trace=False)
+               if m.startswith("memory_peak_mib")]
+    assert cell.metrics(run, trace=False)[name] == {"value": 750.23095703125,
+                                                    "unit": "MiB"}
+    run["memory_peak_bytes"] = 0  # a CPU run
+    assert name not in cell.metrics(run, trace=False)

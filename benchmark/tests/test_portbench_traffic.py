@@ -68,6 +68,24 @@ def test_annotated_pool_writes_the_train_split(tmp_path):
             len(e["alignment"]) == len(e["action"])
 
 
+def test_train_split_in_the_plan_order_gives_every_seed_one_batching(
+        tmp_path):
+    # a shuffle fixed by plan_seed (pbench/train.py) then cuts every
+    # seed's pool into batches of the same sizes, of other videos
+    splits = []
+    for seed in (2 ** 31 + 5, 2 ** 32 + 77):
+        fx = write_pool(str(tmp_path / str(seed)), C, TRAFFIC, seed,
+                        annotated=True)
+        with open(os.path.join(fx["data_dir"],
+                               "bosselut_yc2_train_anet_format.json")) as f:
+            splits.append(json.load(f))
+    order = np.random.RandomState(1).permutation(TRAFFIC["pool_videos"])
+    sizes = [[(s[n]["timestamps"], len(s[n]["ingredients"]))
+              for n in np.array(list(s))[order]] for s in splits]
+    assert sizes[0] == sizes[1]
+    assert list(splits[0]) != list(splits[1])
+
+
 def test_schedule_repeats_for_a_seed_and_permutes_across_seeds():
     seq_a, off_a = _schedule(TRAFFIC, 2 ** 32 - 3, 12, 20.0)
     seq_b, off_b = _schedule(TRAFFIC, 2 ** 32 - 3, 12, 20.0)
